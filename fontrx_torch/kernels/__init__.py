@@ -1,0 +1,2 @@
+"""Raster kernels: hand-written CUDA kernels and their plain PyTorch
+versions."""

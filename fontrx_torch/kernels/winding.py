@@ -1,0 +1,80 @@
+"""The CUDA winding kernel (``csrc/winding.cu``) and its wrapper.
+
+One kernel replaces the TPU's two winding kernels on the glyph fill path,
+``winding_pallas_v2.py::_make_v2_kernel`` and
+``winding_dense.py::_make_dense_kernel``; see the note in the source.
+
+A tensor on the CPU goes to the plain version, ``winding_ref``. A CUDA
+tensor goes to the kernel, and a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fontrx_torch.kernels import _build, winding_ref
+
+SOURCE = "fontrx_torch/csrc/winding.cu"
+
+# launches of the kernel in this process; the wrapper adds one per launch
+launches = 0
+
+
+def _check(name, t, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def winding_batch(
+    segments, min_x, max_y, scale, *, height, width, sample_offset=(0.0, 0.0)
+):
+    """Batched nonzero winding maps: int32 ``[B, height, width]``.
+
+    ``segments`` float32 ``[B, S, 3, 2]``, ``min_x``/``max_y`` int32 ``[B]``
+    on one device; ``scale`` (> 0) and ``sample_offset`` are host numbers,
+    rounded to float32. Same arguments and result as
+    ``winding_ref.winding_batch``.
+    """
+    if segments.device.type == "cpu":
+        return winding_ref.winding_batch(
+            segments, min_x, max_y, scale, height=height, width=width,
+            sample_offset=sample_offset,
+        )
+    global launches
+    if segments.dim() != 4 or segments.shape[2:] != (3, 2):
+        raise ValueError(f"segments must be [B, S, 3, 2], got {tuple(segments.shape)}")
+    b, s = segments.shape[:2]
+    _check("segments", segments, torch.float32, (b, s, 3, 2))
+    _check("min_x", min_x, torch.int32, (b,))
+    _check("max_y", max_y, torch.int32, (b,))
+    if min_x.device != segments.device or max_y.device != segments.device:
+        raise ValueError("segments, min_x and max_y must be on one device")
+    scale = np.float32(scale)
+    if not (np.isfinite(scale) and scale > 0):
+        raise ValueError(f"scale must be finite and > 0, got {scale}")
+    ox, oy = (np.float32(v) for v in sample_offset)
+    if height < 0 or width < 0:
+        raise ValueError(f"bad raster size {height}x{width}")
+
+    out = torch.empty((b, height, width), dtype=torch.int32, device=segments.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("winding")
+    with torch.cuda.device(segments.device):
+        stream = torch.cuda.current_stream(segments.device).cuda_stream
+        err = lib.winding(
+            segments.data_ptr(), min_x.data_ptr(), max_y.data_ptr(),
+            float(scale), float(ox), float(oy),
+            b, s, height, width, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"winding kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return out

@@ -1,0 +1,94 @@
+"""fontrx_torch and chip_smoke.py import no JAX, and the CUDA build keeps the
+float rules: no FMA contraction, no fast math, the Hopper target."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fontrx_torch import device
+from fontrx_torch.kernels import _build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "fontrx_torch",
+    "fontrx_torch.device",
+    "fontrx_torch.convert",
+    "fontrx_torch.entry",
+    "fontrx_torch.kernels._build",
+    "fontrx_torch.kernels.winding",
+    "fontrx_torch.kernels.winding_ref",
+    "fontrx_torch.engine.raster",
+    "fontrx_torch.engine.atlas",
+    "chip_smoke",
+]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_imports_without_jax(module):
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
+        " and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "assert 'fontrx.engine.raster' not in sys.modules\n"
+        "assert 'fontrx.scene' not in sys.modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_nvcc_flags_keep_float_rules():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "-fmad=false" in flags
+    assert "sm_90a" in flags and "compute_90a" in flags
+    for bad in ("--use_fast_math", "-use_fast_math", "-ftz=true", "-prec-div=false",
+                "-prec-sqrt=false", "-fmad=true"):
+        assert bad not in flags
+
+
+def test_source_uses_no_fast_intrinsics():
+    src = (_build.CSRC_DIR / "winding.cu").read_text()
+    for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):
+        assert bad not in src
+
+
+def test_library_is_keyed_by_source(tmp_path, monkeypatch):
+    (tmp_path / "winding.cu").write_text("// a\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path("winding")
+    (tmp_path / "winding.cu").write_text("// b\n")
+    second = _build.library_path("winding")
+    assert first != second and first.parent == _build.BUILD_DIR
+    assert _build.BUILD_DIR == ROOT / "build" / "fontrx_torch"
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    (tmp_path / "winding.cu").write_text("// not built here\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("winding")
+    assert not (tmp_path / "build").exists()
+
+
+def test_probe_reports_toolchain():
+    info = device.probe()
+    for key in ("torch", "torch_cuda", "cuda_available", "device_count", "nvcc", "triton"):
+        assert key in info
+    assert info["cuda_available"] == torch.cuda.is_available()
+
+
+def test_require_cuda():
+    if torch.cuda.is_available():
+        assert device.require_cuda().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device.require_cuda()
