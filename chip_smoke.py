@@ -1,29 +1,37 @@
-"""Drive fontrx_torch's glyph fill path once on one CUDA card, and check it.
+"""Drive fontrx_torch's glyph fill and tile coverage paths once on one CUDA
+card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the CUDA winding kernel from ``fontrx_torch/csrc`` into ``build/``,
-then drives the main path through the entry points a user calls:
+It builds the CUDA kernels from ``fontrx_torch/csrc`` into ``build/`` (one
+``nvcc`` per source, all started together), packs two atlases with the
+port's own front end, then drives the two paths through the entry points a
+user calls, each with the kernels' launch counts set to 0 just before it and
+read just after:
 
-1. the 94 printable ASCII glyphs of DejaVu Sans at 256 px on 256 x 256
-   tiles, through ``RasterEngine.winding_batch``;
-2. the 1024 glyphs of ``tests/data/cjktest.ttf`` (200-330 segments each) at
-   64 px on 64 x 64 tiles;
-3. the README quick start on 'A' at 256 px: ``winding_glyph`` -> ``fill`` ->
-   QOI encode -> decode;
-4. ``fontrx_torch.entry.entry()``'s raster step on its example batch.
+- **winding fill**:
+  1. the 94 printable ASCII glyphs of DejaVu Sans at 256 px on 256 x 256
+     tiles, through ``RasterEngine.winding_batch``;
+  2. the 1024 glyphs of ``tests/data/cjktest.ttf`` (200-330 segments each)
+     at 64 px on 64 x 64 tiles;
+  3. the README quick start on 'A' at 256 px: ``winding_glyph`` -> ``fill``
+     -> QOI encode -> decode;
+  4. ``fontrx_torch.entry.entry()``'s raster step on its example batch;
+- **tile coverage**: 2 x 2 supersampled coverage of both atlases through
+  ``RasterEngine.coverage_batch``, then ``coverage_to_gray``.
 
-It then checks every result: the kernel against its plain PyTorch version
+It then checks every result: each kernel against its plain PyTorch version
 on every pixel, the atlases against the NumPy oracle (``contract=False``)
-on every 13th glyph, and the quick start against the oracle's fill, and
-times the kernel and the plain version with CUDA events: the kernel both
+on sampled glyphs, and the quick start against the oracle's fill, and
+times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
 (what a caller waits for, host launch overhead included). Any failure raises
-and exits non-zero. The last two lines are JSON: the kernels' record, then
-``{"ok": true, "device": {...}}``.
+and exits non-zero. The last two lines are JSON: the kernels' record (each
+kernel's times beside its bound, from ``fontrx_torch.bound``, and the host
+pack times), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,21 +41,22 @@ import pathlib
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from fontrx.font.font import Font
-from fontrx.io import qoi
-from fontrx.kernels import oracle
-from fontrx.kernels.grid import RasterGrid
-from fontrx.pack.segments import pack_glyph
+from fontrx_torch.bound import bound_ms, solve_work
 from fontrx_torch.convert import grid_anchors, packed_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.entry import entry
-from fontrx_torch.kernels import _build, winding, winding_ref
+from fontrx_torch.font.font import Font
+from fontrx_torch.io import qoi
+from fontrx_torch.kernels import _build, coverage, coverage_ref, oracle, winding, winding_ref
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import pack_glyph
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEJAVU = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -58,8 +67,9 @@ ATLASES = (
     ("ascii256", DEJAVU, list(range(33, 127)), 256),
     ("cjk64", CJK, [0x4E00 + i for i in range(1024)], 64),
 )
-ORACLE_STRIDE = 13  # oracle-checked glyphs: every 13th, as bench.py samples
-
+ORACLE_STRIDE = 13           # winding: every 13th glyph, as bench.py samples
+COVERAGE_ORACLE_STRIDE = 52  # coverage costs the oracle k*k maps a glyph
+SAMPLES = 2                  # k of the k x k coverage (the reference's MSAA workloads)
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -100,44 +110,89 @@ def graph_ms(fn, *, calls: int = 20) -> float:
     return cuda_ms(graph.replay, inner=1) / calls
 
 
+def bound(batch, args, out, *, row_offsets, columns: int, samples_per_pixel: int):
+    """The least time the card could take for a kernel's work, in ms, what
+    binds it, and the FP32 operations and crossings counted: the inputs read
+    once and the output written once at the memory rate, against the
+    operations these inputs need (``fontrx_torch.bound``) and one per sample
+    at the FP32 rate."""
+    seg, min_x, max_y, scale = args
+    nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y, out))
+    ops, crossings = solve_work(batch.segments, batch.seg_counts, max_y.cpu().numpy(), scale,
+                                height=out.shape[1], row_offsets=row_offsets, columns=columns)
+    ops += out.numel() * samples_per_pixel
+    return (*bound_ms(nbytes, ops), ops, crossings)
+
+
+def coverage_oracle(segments, grid: RasterGrid, k: int) -> np.ndarray:
+    """The oracle's coverage: nonzero samples over the k x k lattice,
+    counted, times float32(1 / k^2)."""
+    count = np.zeros((grid.height, grid.width), np.int32)
+    scale = np.float32(grid.scale)
+    for ox, oy in coverage_ref.sample_offsets(k):
+        xs = ((grid.min_x + np.arange(grid.width)).astype(np.float32) + ox) / scale
+        ys = ((grid.max_y - np.arange(grid.height)).astype(np.float32) + oy) / scale
+        count += oracle.winding_at(segments, xs[None, :], ys[:, None], contract=False) != 0
+    return count.astype(np.float32) * coverage_ref.inv_samples(k)
+
+
+def build_kernels() -> None:
+    """Build every kernel library at once, one nvcc process per source."""
+    names = sorted(_build._SIGNATURES)
+
+    def timed(name):
+        cached = _build.library_path(name).exists()
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        return path, time.perf_counter() - t0, cached
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = dict(zip(names, pool.map(timed, names)))
+    for name, (path, secs, cached) in results.items():
+        _build.load(name)
+        print(f"build: {path.relative_to(ROOT)} in {secs:.2f} s"
+              + (" (already built)" if cached else ""))
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+
+
 def load_atlas(font_path, chars, size):
-    font = Font.open(str(font_path))
+    t0 = time.perf_counter()
+    font = Font.open(font_path)
     batch = pack_charset(font, chars)
+    pack_s = time.perf_counter() - t0
     grids = [
         RasterGrid.fixed_tile(tuple(box), size, font.info.units_per_em, size)
         for box in np.asarray(batch.boxes)
     ]
-    return batch, grids
+    return batch, grids, pack_s
 
 
 def main() -> None:
     dev = require_cuda()
     print("toolchain:", json.dumps(probe()))
-    t0 = time.perf_counter()
-    lib = _build.library_path("winding")
-    cached = lib.exists()
-    _build.load("winding")
-    print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s"
-          + (" (already built)" if cached else ""))
+    build_kernels()
 
-    atlases = {}
+    atlases, pack_s = {}, {}
     for name, font_path, chars, size in ATLASES:
-        batch, grids = load_atlas(font_path, chars, size)
+        batch, grids, pack_s[name] = load_atlas(font_path, chars, size)
         atlases[name] = (batch, grids, size)
-        print(f"{name}: segments {list(batch.segments.shape)}")
+        print(f"{name}: segments {list(batch.segments.shape)}, host pack "
+              f"(font parse + {len(chars)} glyphs, Python path) {pack_s[name]:.3f} s")
 
-    # --- the main path, once, through the user-facing entry points -------
     engine = RasterEngine(device=dev)
-    winding.launches = 0
+
+    # --- winding fill path, once, through the user-facing entry points ----
+    winding.launches = coverage.launches = 0
     outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = winding.launches
         outputs[name] = engine.winding_batch(
             batch.segments, *grid_anchors(grids), height=size, width=size)
         torch.cuda.synchronize()
-        check(winding.launches > before, f"{name} did not launch the kernel")
+        check(winding.launches > before, f"{name} did not launch the winding kernel")
 
-    font = Font.open(str(DEJAVU))
+    font = Font.open(DEJAVU)
     glyph, _advance = font.get_glyph("A")
     packed = pack_glyph(glyph)
     grid = RasterGrid.for_glyph_box(packed.box, 256, font.info.units_per_em)
@@ -145,31 +200,46 @@ def main() -> None:
     fill = engine.fill(engine.winding_glyph(packed.segments, grid)).cpu().numpy()
     rgb = np.repeat(fill[:, :, None], 3, axis=2)
     decoded = qoi.decode(qoi.encode_rgb(rgb))
-    check(winding.launches > before, "quick start did not launch the kernel")
+    check(winding.launches > before, "quick start did not launch the winding kernel")
 
     before = winding.launches
     fn, example_args = entry()
     mask = fn(*example_args)
     torch.cuda.synchronize()
-    check(winding.launches > before, "entry() did not launch the kernel")
-    main_launches = winding.launches
-    print(f"main path: {main_launches} kernel launches")
+    check(winding.launches > before, "entry() did not launch the winding kernel")
+    winding_launches = winding.launches
+    print(f"winding path: {winding_launches} winding kernel launches, "
+          f"{coverage.launches} coverage")
+
+    # --- tile coverage path, once ------------------------------------------
+    winding.launches = coverage.launches = 0
+    cov_outputs = {}
+    for name, (batch, grids, size) in atlases.items():
+        before = coverage.launches
+        cov = engine.coverage_batch(batch.segments, *grid_anchors(grids), height=size,
+                                    width=size, samples=SAMPLES)
+        cov_outputs[name] = (cov, engine.coverage_to_gray(cov))
+        torch.cuda.synchronize()
+        check(coverage.launches > before, f"{name} did not launch the coverage kernel")
+    coverage_launches = coverage.launches
+    print(f"coverage path: {coverage_launches} coverage kernel launches, "
+          f"{winding.launches} winding")
 
     # --- checks ------------------------------------------------------------
-    max_abs_err = 0
-    record = {}
+    record = {"winding": {}, "coverage": {}}
+    max_err = {"winding": 0, "coverage": 0.0}
     for name, (batch, grids, size) in atlases.items():
-        out = outputs[name]
         args = packed_to_device(batch, grids, dev)
+        b = len(grids)
+        out = outputs[name]
         ref = winding_ref.winding_batch(*args, height=size, width=size)
-        check(out.shape == ref.shape == (len(grids), size, size), f"{name} shape")
+        check(out.shape == ref.shape == (b, size, size), f"{name} winding shape")
         diff = int((out != ref).sum())
-        err = int((out - ref).abs().max())
-        max_abs_err = max(max_abs_err, err)
+        max_err["winding"] = max(max_err["winding"], int((out - ref).abs().max()))
         check(diff == 0, f"{name}: {diff} pixels differ from winding_ref")
 
         out_host = out.cpu().numpy()
-        sampled = range(0, len(grids), ORACLE_STRIDE)
+        sampled = range(0, b, ORACLE_STRIDE)
         mism = 0
         for i in sampled:
             xs, ys = grids[i].sample_coords()
@@ -177,22 +247,59 @@ def main() -> None:
                                    contract=False)
             mism += int((wo != out_host[i]).sum())
         check(mism == 0, f"{name}: {mism} pixels differ from the oracle")
-        print(f"{name}: 0 of {out.numel()} pixels differ from winding_ref; "
+        print(f"{name} winding: 0 of {out.numel()} pixels differ from winding_ref; "
               f"0 of {len(sampled) * size * size} differ from the oracle "
               f"({len(sampled)} glyphs); inked {int((out != 0).sum())}")
 
-        def kernel():
-            return winding.winding_batch(*args, height=size, width=size)
+        cov, gray = cov_outputs[name]
+        cref = coverage_ref.coverage_batch(*args, height=size, width=size, samples=SAMPLES)
+        check(cov.shape == cref.shape == (b, size, size) and cov.dtype == torch.float32,
+              f"{name} coverage shape")
+        check(bool(torch.isfinite(cov).all()) and float(cov.min()) >= 0
+              and float(cov.max()) <= 1, f"{name} coverage outside [0, 1]")
+        diff = int((cov != cref).sum())
+        max_err["coverage"] = max(max_err["coverage"], float((cov - cref).abs().max()))
+        check(diff == 0, f"{name}: {diff} coverage pixels differ from coverage_ref")
+        check(torch.equal(gray, coverage_ref.coverage_to_gray(cref)), f"{name} gray")
+        cov_host = cov.cpu().numpy()
+        sampled = range(0, b, COVERAGE_ORACLE_STRIDE)
+        mism = sum(int((coverage_oracle(batch.segments[i], grids[i], SAMPLES)
+                        != cov_host[i]).sum()) for i in sampled)
+        check(mism == 0, f"{name}: {mism} coverage pixels differ from the oracle")
+        print(f"{name} coverage k={SAMPLES}: 0 of {cov.numel()} pixels differ from "
+              f"coverage_ref; 0 of {len(sampled) * size * size} differ from the oracle "
+              f"({len(sampled)} glyphs); partial pixels "
+              f"{int(((cov > 0) & (cov < 1)).sum())}")
 
-        call_ms = cuda_ms(kernel, inner=10)
-        kernel_ms = graph_ms(kernel)
-        plain_ms = cuda_ms(
-            lambda: winding_ref.winding_batch(*args, height=size, width=size), inner=1)
-        b = len(grids)
-        print(f"{name}: kernel {kernel_ms:.4f} ms on the device ({b / kernel_ms * 1e3:.0f} "
-              f"glyphs/s), {call_ms:.4f} ms per wrapper call; winding_ref "
-              f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)")
-        record[name] = (kernel_ms, plain_ms, call_ms)
+        kernels = {
+            "winding": (
+                lambda: winding.winding_batch(*args, height=size, width=size),
+                lambda: winding_ref.winding_batch(*args, height=size, width=size),
+                bound(batch, args, out, row_offsets=[0.0], columns=1, samples_per_pixel=1),
+            ),
+            "coverage": (
+                lambda: coverage.coverage_batch(*args, height=size, width=size,
+                                                samples=SAMPLES),
+                lambda: coverage_ref.coverage_batch(*args, height=size, width=size,
+                                                    samples=SAMPLES),
+                # the k sub-row offsets; ox varies fastest in sample_offsets
+                bound(batch, args, cov,
+                      row_offsets=coverage_ref.sample_offsets(SAMPLES)[::SAMPLES, 1],
+                      columns=SAMPLES, samples_per_pixel=SAMPLES * SAMPLES),
+            ),
+        }
+        for kname, (kernel, plain, (b_ms, bound_by, ops, crossings)) in kernels.items():
+            call_ms = cuda_ms(kernel, inner=10)
+            kernel_ms = graph_ms(kernel)
+            plain_ms = cuda_ms(plain, inner=1)
+            record[kname][name] = dict(ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms,
+                                       bound_ms=b_ms, bound_by=bound_by, bound_ops=ops,
+                                       crossings=crossings)
+            print(f"{name} {kname}: kernel {kernel_ms:.4f} ms on the device "
+                  f"({b / kernel_ms * 1e3:.0f} glyphs/s), {call_ms:.4f} ms per wrapper "
+                  f"call; bound {b_ms:.4f} ms ({bound_by}; {ops} FP32 ops, {crossings} "
+                  f"crossings); plain version "
+                  f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)")
 
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
@@ -224,21 +331,23 @@ def main() -> None:
         capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    print(json.dumps({"kernels": [{
-        "name": "winding",
-        "route": "cuda",
-        "source": winding.SOURCE,
-        "replaces": "fontrx/kernels/winding_pallas_v2.py:131",
-        "also_replaces": "fontrx/kernels/winding_dense.py:84",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": record["ascii256"][0],
-        "plain_ms": record["ascii256"][1],
-        "call_ms": record["ascii256"][2],
-        "cjk64_ms": record["cjk64"][0],
-        "cjk64_plain_ms": record["cjk64"][1],
-        "cjk64_call_ms": record["cjk64"][2],
-    }]}))
+    def entry_of(kname, replaces, launches, **extra):
+        main, cjk = record[kname]["ascii256"], record[kname]["cjk64"]
+        return {
+            "name": kname, "route": "cuda", "source": f"fontrx_torch/csrc/{kname}.cu",
+            "replaces": replaces, **extra, "launches": launches,
+            "max_abs_err": max_err[kname],
+            # ascii256 in the main keys, cjk64 beside them
+            **main, "library_ms": None,
+            **{f"cjk64_{key}": value for key, value in cjk.items()},
+        }
+
+    print(json.dumps({"kernels": [
+        entry_of("winding", "fontrx/kernels/winding_pallas_v2.py:628", winding_launches,
+                 also_replaces="fontrx/kernels/winding_dense.py:297"),
+        entry_of("coverage", "fontrx/kernels/coverage_pallas.py:211", coverage_launches,
+                 samples=SAMPLES),
+    ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,24 @@
 """fontrx_torch: the fontrx glyph rasterizer on PyTorch and CUDA.
 
 A port of ``fontrx`` (JAX/Pallas on a TPU) to PyTorch with hand-written
-CUDA kernels for NVIDIA Hopper. The host front end (font parsing, segment
-packing, the NumPy oracle, raster grids, QOI) is imported from ``fontrx``,
-whose modules for it import no JAX. This package never imports JAX.
+CUDA kernels for NVIDIA Hopper. It owns its host front end: NumPy copies of
+the parts of ``fontrx`` that its paths read (the TrueType ``glyf`` reader,
+segment packing, raster grids, the NumPy oracle, QOI), each held equal to
+its original by a test. It imports neither JAX nor anything of ``fontrx``.
 
-- ``device``          toolchain probe and ``require_cuda``
-- ``kernels.winding`` the CUDA winding kernel, and ``kernels.winding_ref``
-  its plain PyTorch version
-- ``engine.raster``   ``RasterEngine``: batched winding maps and fills
-- ``engine.atlas``    character-set packing and atlas rendering
-- ``convert``         host batches and grids to tensors on a device
-- ``entry``           ``entry()``: the raster step and an example batch
+- ``device``              toolchain probe and ``require_cuda``
+- ``font``                the TrueType ``glyf`` front end (``Font``)
+- ``pack.segments``       glyph outlines -> padded segment arrays
+- ``io.qoi``              QOI encoder and decoder
+- ``kernels.grid``        ``RasterGrid``: the pixel -> em-space mapping
+- ``kernels.oracle``      the NumPy winding oracle
+- ``kernels.winding``     the CUDA winding kernel, and
+  ``kernels.winding_ref`` its plain PyTorch version
+- ``kernels.coverage``    the CUDA k x k coverage kernel, and
+  ``kernels.coverage_ref`` its plain PyTorch version
+- ``engine.raster``       ``RasterEngine``: batched winding maps, fills and
+  coverage
+- ``engine.atlas``        character-set packing and atlas rendering
+- ``convert``             host batches and grids to tensors on a device
+- ``entry``               ``entry()``: the raster step and an example batch
 """

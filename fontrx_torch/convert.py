@@ -1,6 +1,5 @@
-"""Carry raster inputs across: host batches and grids, or the JAX package's
-arrays as NumPy, become tensors on a device, so that both packages compute
-on identical inputs."""
+"""Carry raster inputs across: host batches and grids, or NumPy arrays,
+become tensors on a device."""
 
 from __future__ import annotations
 
@@ -9,8 +8,8 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from fontrx.kernels.grid import RasterGrid
-from fontrx.pack.segments import PackedBatch
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import PackedBatch
 
 
 def _tensor(x, np_dtype, dtype, device) -> torch.Tensor:

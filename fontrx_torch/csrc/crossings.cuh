@@ -1,0 +1,91 @@
+// What the winding and coverage kernels share: the per-(segment, row) root
+// solve, the deposit of a crossing into a row of buckets, and the suffix
+// scan that turns a bucket row into per-column windings.
+//
+// The root solve is the float program of fontrx/kernels/winding_pallas_v2.py::
+// phase_a_roots (lines 89-124), op for op, with left-to-right association
+// as written. Built with -fmad=false and without fast math, so no
+// multiply-add is contracted and '/' and sqrtf round correctly: the
+// crossings are those of oracle.winding_at(contract=False).
+#pragma once
+
+// Calls emit(xx, sign) for each crossing, t in [0, 1), of the horizontal
+// line at em-space height y_em with the quadratic segment
+// q = (p0x, p0y, p1x, p1y, p2x, p2y). A crossing at xx adds sign to every
+// sample with !(xx < cx). A zero-padded segment has no crossing.
+template <class Emit>
+__device__ __forceinline__ void segment_crossings(const float* q, float y_em, Emit&& emit) {
+  const float p0x = q[0], p0y = q[1], p1x = q[2], p1y = q[3], p2x = q[4], p2y = q[5];
+  const float a = p0y - 2.0f * p1y + p2y;
+  const float ax = p0x - 2.0f * p1x + p2x;
+  const float bx = 2.0f * (p1x - p0x);
+  if (a == 0.0f) {
+    // linear in y
+    const float denom = p2y - p0y;
+    if (denom != 0.0f) {
+      const float t = (y_em - p0y) / denom;
+      if (t >= 0.0f && t < 1.0f) {
+        const float xx = (ax * t + bx) * t + p0x;
+        emit(xx, p0y < p2y ? -1 : 1);
+      }
+    }
+    return;
+  }
+  const float delta = y_em * a + p1y * p1y - p0y * p2y;
+  if (!(delta >= 0.0f)) return;
+  const float sq = sqrtf(delta);
+  const float py01 = p0y - p1y;
+  const float t0 = (py01 + sq) / a;
+  if (t0 >= 0.0f && t0 < 1.0f) {
+    const float xx = (ax * t0 + bx) * t0 + p0x;
+    const float dy = a * t0 + (p1y - p0y);
+    emit(xx, dy > 0.0f ? -1 : 1);
+  }
+  const float t1 = (py01 - sq) / a;
+  if (t1 >= 0.0f && t1 < 1.0f) {
+    const float xx = (ax * t1 + bx) * t1 + p0x;
+    const float dy = a * t1 + (p1y - p0y);
+    emit(xx, dy > 0.0f ? -1 : 1);
+  }
+}
+
+// Number of columns c in [0, W) with !(xx < cx[c]). cx is non-decreasing in
+// c (int -> float, + offset and / scale > 0 are monotone), so they are a
+// prefix, found by binary search with the same predicate.
+__device__ __forceinline__ int covered_columns(const float* cx, int W, float xx) {
+  int lo = 0, hi = W;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (!(xx < cx[mid])) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Adds sign to bucket_row[k], k the count of covered columns; a suffix scan
+// of the row then gives every column its winding.
+__device__ __forceinline__ void deposit(int* bucket_row, const float* cx, int W,
+                                        float xx, int sign) {
+  int k = covered_columns(cx, W, xx);
+  if (k > 0) atomicAdd(&bucket_row[k], sign);
+}
+
+// Run by one whole warp over one bucket row of W + 1 entries: calls
+// emit(c, w) for every column c in [0, W), w = sum of bucket_row[j] for
+// j > c. Right to left in 32-column pieces, each an inclusive suffix scan
+// across the lanes plus the carry of the pieces to its right.
+template <class Emit>
+__device__ __forceinline__ void suffix_scan_row(const int* bucket_row, int W, int lane,
+                                                Emit&& emit) {
+  int carry = 0;
+  for (int base = ((W - 1) >> 5) << 5; base >= 0; base -= 32) {
+    const int c = base + lane;
+    int s = c < W ? bucket_row[c + 1] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_down_sync(0xffffffffu, s, off);
+      if (lane + off < 32) s += t;
+    }
+    if (c < W) emit(c, s + carry);
+    carry += __shfl_sync(0xffffffffu, s, 0);
+  }
+}

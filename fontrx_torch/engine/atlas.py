@@ -1,10 +1,9 @@
 """Atlas batching: rasterize a whole glyph set in one kernel launch.
 
-The port of ``fontrx.engine.atlas``. ``pack_charset`` and
-``_pack_charset_native`` are copies of the reference's (NumPy only):
-importing ``fontrx.engine.atlas`` would import JAX through
-``fontrx.engine.raster``. A test holds the copies array-equal to the
-originals.
+The port of ``fontrx.engine.atlas``. ``pack_charset`` is the reference's
+Python packing path; the reference's native C++ packer is not ported, and
+the reference holds its two paths array-equal (``tests/test_torch_engine.py``
+holds the port to both).
 """
 
 from __future__ import annotations
@@ -13,9 +12,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from fontrx.font.font import Font
-from fontrx.pack.segments import PackedBatch, pack_glyphs
 from fontrx_torch.engine.raster import RasterEngine
+from fontrx_torch.font.font import Font
+from fontrx_torch.pack.segments import PackedBatch, pack_glyphs
 
 
 @dataclass(frozen=True, slots=True)
@@ -44,78 +43,15 @@ def pack_charset(
     font: Font,
     chars: str | list[int],
     pad_batch_to: int | None = None,
-    use_native: bool = True,
 ) -> PackedBatch:
-    """Load + pack a character set from a font (vectorized char->glyph
-    resolution).
-
-    Fast path: the native C++ data-loader decodes+packs all simple
-    glyphs in one call (``fontrx/native/src/ttf_pack.cc``); compound or
-    flagged glyphs fall back to the Python pipeline row by row.
-    """
+    """Load and pack a character set from a font: code points resolve to
+    glyph indices in one vectorized lookup, then every glyph is loaded
+    (one that fails to load packs as empty) and packed."""
     codes = [ord(c) for c in chars] if isinstance(chars, str) else list(chars)
     idx = font.charmap.glyph_indices(np.array(codes, np.int64))
     widths = np.asarray(font.advance_widths)[idx].astype(np.int32)
-
-    if use_native:
-        batch = _pack_charset_native(font, idx, widths, pad_batch_to)
-        if batch is not None:
-            return batch
-
     glyphs = [font.load_glyph_safe(int(i)) for i in idx]
     return pack_glyphs(glyphs, widths.tolist(), pad_batch_to=pad_batch_to)
-
-
-_NATIVE_SCRATCH_CAPACITY = 1024
-
-
-def _pack_charset_native(font, idx, widths, pad_batch_to):
-    from fontrx import native
-    from fontrx.pack.segments import SEG_ALIGN, glyph_segments
-
-    res = native.pack_glyphs_native(
-        font._reader.data,
-        font._loca,
-        font.tables[b"glyf"].offset,
-        idx.astype(np.int32),
-        _NATIVE_SCRATCH_CAPACITY,
-    )
-    if res is None:
-        return None
-    segments, counts, boxes, flags = res
-    # fill non-simple rows (compound glyphs etc.) via the Python path
-    for i in np.nonzero(flags != 0)[0]:
-        g = font.load_glyph_safe(int(idx[i]))
-        seg = glyph_segments(g)
-        if len(seg) > _NATIVE_SCRATCH_CAPACITY:
-            return None  # pathological; let the pure path size it
-        segments[i] = 0
-        segments[i, : len(seg)] = seg
-        counts[i] = len(seg)
-        boxes[i] = (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max)
-    # y-sort each row in place — same ordering as pack_glyphs, so the
-    # native and pure paths stay array-equal
-    from fontrx.pack.segments import ysort_segments
-
-    for i in range(len(idx)):
-        n = int(counts[i])
-        if n > 1:
-            segments[i, :n] = ysort_segments(segments[i, :n])
-
-    b = len(idx)
-    if pad_batch_to is not None:
-        b = max(b, pad_batch_to)
-    cap = max(int(counts.max()) if len(counts) else 0, 1)
-    cap = ((cap + SEG_ALIGN - 1) // SEG_ALIGN) * SEG_ALIGN
-    final = np.zeros((b, cap, 3, 2), np.float32)
-    final[: len(idx), :, :, :] = segments[:, :cap]
-    out_counts = np.zeros(b, np.int32)
-    out_counts[: len(idx)] = counts
-    out_boxes = np.zeros((b, 4), np.int32)
-    out_boxes[: len(idx)] = boxes
-    out_widths = np.zeros(b, np.int32)
-    out_widths[: len(idx)] = widths
-    return PackedBatch(final, out_counts, out_boxes, out_widths)
 
 
 def render_atlas(

@@ -1,10 +1,13 @@
-"""Raster engine: batched winding maps and fills on one device.
+"""Raster engine: batched winding maps, fills and k x k coverage on one
+device.
 
-The port of ``fontrx.engine.raster.RasterEngine``'s winding path. Inputs go
-to the engine's device; a CUDA device runs the CUDA winding kernel and the
-CPU runs its plain PyTorch version (``fontrx_torch.kernels.winding``). One
-kernel serves every tile size, so the TPU's split at 128 px, its padding to
-128-row strips and its per-launch batch cap are gone.
+The port of ``fontrx.engine.raster.RasterEngine``'s winding and tile
+coverage paths. Inputs go to the engine's device; a CUDA device runs the
+CUDA kernels and the CPU runs their plain PyTorch versions
+(``fontrx_torch.kernels.winding`` and ``.coverage``). One kernel of each
+serves every tile size, so the TPU's split at 128 px, its padding to
+128-row strips, its per-launch batch cap and its choice between coverage
+strategies are gone.
 """
 
 from __future__ import annotations
@@ -14,10 +17,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fontrx.kernels.grid import RasterGrid
-from fontrx.pack.segments import PackedBatch, pack_glyphs
 from fontrx_torch.convert import grid_anchors, to_device
-from fontrx_torch.kernels import winding
+from fontrx_torch.kernels import coverage, coverage_ref, winding
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import PackedBatch, pack_glyphs
 
 
 def _fixed_tiles(boxes, font_size: int, units_per_em: int, tile: int) -> list[RasterGrid]:
@@ -125,6 +128,22 @@ class RasterEngine:
             return torch.zeros((0, tile, tile), dtype=torch.int32,
                                device=self.device), glyph_grids
         return torch.cat(parts), glyph_grids
+
+    def coverage_batch(
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
+        samples: int = 2,
+    ) -> torch.Tensor:
+        """Batched k x k supersampled coverage (the MSAA analog), k =
+        ``samples``: float32 ``[B, height, width]`` in [0, 1] on the
+        engine's device. Same inputs as ``winding_batch``."""
+        segments, min_x, max_y, scale = to_device(
+            segments, min_x, max_y, scale, self.device)
+        return coverage.coverage_batch(
+            segments, min_x, max_y, scale, height=height, width=width,
+            samples=samples,
+        )
+
+    coverage_to_gray = staticmethod(coverage_ref.coverage_to_gray)
 
     @staticmethod
     def fill(winding_map: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` file exports plain C functions. It is compiled at
 first use with ``nvcc`` into a shared library under ``build/fontrx_torch/``
-at the root of the checkout, keyed by a hash of the source and the flags, and
-loaded with ``ctypes``. No PyTorch header is compiled, so a build takes
-seconds.
+at the root of the checkout, keyed by a hash of the flags, the source and
+every ``csrc/*.cuh`` header, and loaded with ``ctypes``. No PyTorch header
+is compiled, so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
     ),
+    "coverage": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
+         ctypes.c_float, ctypes.c_float, ctypes.c_int,        # scale, inv_k2, k
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
+         ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -55,10 +62,14 @@ def nvcc_path() -> str | None:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives. The key
+    covers every header in ``csrc/``, so a changed header never loads a
+    library built from the old one."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

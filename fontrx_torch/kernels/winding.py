@@ -32,6 +32,26 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_inputs(segments, min_x, max_y, scale, height, width):
+    """Check what the kernels take: float32 ``[B, S, 3, 2]`` segments and
+    int32 ``[B]`` anchors, contiguous on one CUDA device, a finite
+    ``scale > 0`` and a size >= 0. Returns ``(B, S, float32 scale)``."""
+    if segments.dim() != 4 or segments.shape[2:] != (3, 2):
+        raise ValueError(f"segments must be [B, S, 3, 2], got {tuple(segments.shape)}")
+    b, s = segments.shape[:2]
+    _check("segments", segments, torch.float32, (b, s, 3, 2))
+    _check("min_x", min_x, torch.int32, (b,))
+    _check("max_y", max_y, torch.int32, (b,))
+    if min_x.device != segments.device or max_y.device != segments.device:
+        raise ValueError("segments, min_x and max_y must be on one device")
+    scale = np.float32(scale)
+    if not (np.isfinite(scale) and scale > 0):
+        raise ValueError(f"scale must be finite and > 0, got {scale}")
+    if height < 0 or width < 0:
+        raise ValueError(f"bad raster size {height}x{width}")
+    return b, s, scale
+
+
 def winding_batch(
     segments, min_x, max_y, scale, *, height, width, sample_offset=(0.0, 0.0)
 ):
@@ -48,20 +68,8 @@ def winding_batch(
             sample_offset=sample_offset,
         )
     global launches
-    if segments.dim() != 4 or segments.shape[2:] != (3, 2):
-        raise ValueError(f"segments must be [B, S, 3, 2], got {tuple(segments.shape)}")
-    b, s = segments.shape[:2]
-    _check("segments", segments, torch.float32, (b, s, 3, 2))
-    _check("min_x", min_x, torch.int32, (b,))
-    _check("max_y", max_y, torch.int32, (b,))
-    if min_x.device != segments.device or max_y.device != segments.device:
-        raise ValueError("segments, min_x and max_y must be on one device")
-    scale = np.float32(scale)
-    if not (np.isfinite(scale) and scale > 0):
-        raise ValueError(f"scale must be finite and > 0, got {scale}")
+    b, s, scale = check_inputs(segments, min_x, max_y, scale, height, width)
     ox, oy = (np.float32(v) for v in sample_offset)
-    if height < 0 or width < 0:
-        raise ValueError(f"bad raster size {height}x{width}")
 
     out = torch.empty((b, height, width), dtype=torch.int32, device=segments.device)
     if out.numel() == 0:

@@ -1,0 +1,302 @@
+"""fontrx_torch k x k coverage: the plain PyTorch version against the NumPy
+oracle and the JAX package, the reciprocal rounding rule, the wrapper's CPU
+route and the engine, and the CUDA kernel against the plain version on the
+card.
+
+Exactness rules:
+- at k = 1 coverage is the fill ``(w != 0)`` of ``winding_ref``, bit for bit;
+- ``coverage_ref`` is the oracle's (``contract=False``) nonzero samples
+  counted over the k x k lattice, times ``float32(1 / k^2)``, bit for bit;
+- against the JAX package on the CPU a pixel may differ only where one of its
+  samples is a tie: a sample where the oracle's contract=True and
+  contract=False windings disagree (XLA:CPU contracts the x-polynomial, the
+  port does not).
+
+The module imports JAX only inside the tests that compare with it, so the
+card's tests also run where there is no JAX:
+``python -m pytest --noconftest -m requires_cuda tests/test_torch_coverage.py``.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks.cjk import UPEM, synthetic_strokes
+from fontrx.kernels import oracle
+from fontrx_torch.engine.raster import RasterEngine
+from fontrx_torch.font.font import Font
+from fontrx_torch.kernels import coverage, coverage_ref, winding_ref
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import glyph_segments, pack_glyphs
+
+FONT = pathlib.Path(__file__).resolve().parents[1] / "fontrx_torch" / "data" / "DejaVuSans.ttf"
+f32 = np.float32
+
+
+@pytest.fixture(scope="module")
+def font():
+    return Font.open(FONT)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def glyph_batch(font, chars, size, tile):
+    batch = pack_glyphs([font.get_glyph(c)[0] for c in chars])
+    grids = [RasterGrid.fixed_tile(tuple(b), size, font.info.units_per_em, tile)
+             for b in batch.boxes]
+    min_x = np.array([g.min_x for g in grids], np.int32)
+    max_y = np.array([g.max_y for g in grids], np.int32)
+    return batch.segments, min_x, max_y, f32(grids[0].scale)
+
+
+def synthetic_batch(size):
+    rng = np.random.default_rng(5)
+    segs = np.stack([synthetic_strokes(rng, 300) for _ in range(2)])
+    return segs, np.zeros(2, np.int32), np.full(2, size - 1, np.int32), f32(size / UPEM)
+
+
+def tensors(segs, min_x, max_y, scale, device="cpu"):
+    return (torch.from_numpy(np.ascontiguousarray(segs, np.float32)).to(device),
+            torch.from_numpy(np.asarray(min_x, np.int32)).to(device),
+            torch.from_numpy(np.asarray(max_y, np.int32)).to(device), float(scale))
+
+
+def ref(segs, min_x, max_y, scale, h, w, k):
+    return coverage_ref.coverage_batch(
+        *tensors(segs, min_x, max_y, scale), height=h, width=w, samples=k).numpy()
+
+
+def sub_coords(min_x, max_y, scale, h, w, off):
+    """Oracle sample coordinates at one lattice offset, in the kernels' op
+    order: int add, then the offset, then one f32 divide."""
+    xs = ((min_x + np.arange(w)).astype(f32) + f32(off[0])) / f32(scale)
+    ys = ((max_y - np.arange(h)).astype(f32) + f32(off[1])) / f32(scale)
+    return xs[None, :], ys[:, None]
+
+
+def oracle_counts(seg, min_x, max_y, scale, h, w, k):
+    """Per pixel: the oracle's (contract=False) nonzero samples, and whether
+    any sample is a tie (contract=True disagrees)."""
+    count = np.zeros((h, w), np.int32)
+    tie = np.zeros((h, w), bool)
+    for off in coverage_ref.sample_offsets(k):
+        cx, cy = sub_coords(min_x, max_y, scale, h, w, off)
+        strict = oracle.winding_at(seg, cx, cy, contract=False)
+        count += strict != 0
+        tie |= oracle.winding_at(seg, cx, cy, contract=True) != strict
+    return count, tie
+
+
+def assert_ties_only(port, other, segs, min_x, max_y, scale, h, w, k):
+    for i in range(len(segs)):
+        diff = port[i] != other[i]
+        if diff.any():
+            _, tie = oracle_counts(segs[i], min_x[i], max_y[i], scale, h, w, k)
+            assert not (diff & ~tie).any(), f"glyph {i}: non-tie pixels differ"
+
+
+def wedge_batch():
+    """A thin wedge with irrational-looking slopes across a 24 x 24 raster:
+    its edge pixels take most sample counts 0..25 at k = 5."""
+    tri = np.array([[0, 0], [1531, 2011], [1873, 97]], np.float32)
+    segs = np.zeros((1, 4, 3, 2), np.float32)
+    for i in range(3):
+        p0, p2 = tri[i], tri[(i + 1) % 3]
+        segs[0, i] = [p0, (p0 + p2) / 2, p2]
+    return segs, np.zeros(1, np.int32), np.full(1, 23, np.int32), f32(24 / 2048)
+
+
+class TestRef:
+    @pytest.mark.parametrize("which", ["glyphs", "strokes"])
+    def test_k1_is_the_fill(self, font, which):
+        args = glyph_batch(font, "AQg@&", 48, 48) if which == "glyphs" else synthetic_batch(40)
+        h = w = 48 if which == "glyphs" else 40
+        fill = winding_ref.winding_batch(*tensors(*args), height=h, width=w) != 0
+        np.testing.assert_array_equal(ref(*args, h, w, 1), fill.to(torch.float32).numpy())
+
+    @pytest.mark.parametrize("k", [2, 4])
+    @pytest.mark.parametrize("chars", ["AQ", "@é", "g&"])
+    def test_equals_oracle(self, font, chars, k):
+        segs, min_x, max_y, scale = glyph_batch(font, chars, 40, 40)
+        out = ref(segs, min_x, max_y, scale, 40, 40, k)
+        for i in range(len(segs)):
+            count, _ = oracle_counts(segs[i], min_x[i], max_y[i], scale, 40, 40, k)
+            np.testing.assert_array_equal(out[i], count.astype(f32) * f32(1 / (k * k)))
+            assert ((out[i] > 0) & (out[i] < 1)).any()  # the edges are antialiased
+
+    @pytest.mark.parametrize("k", [1, 2, 3, 5, 7])
+    def test_sample_offsets_equal_reference(self, k):
+        from fontrx.kernels.coverage import sample_offsets
+
+        got = coverage_ref.sample_offsets(k)
+        assert got.dtype == np.float32 and got.shape == (k * k, 2)
+        np.testing.assert_array_equal(got, sample_offsets(k))
+        np.testing.assert_array_equal(got[:k, 0], got[0::k, 1])  # ox varies fastest
+
+    def test_reciprocal_rule_at_k5(self):
+        """count * f32(1/25), not count / 25: they differ at 7 of the 26
+        counts, and the JAX package rounds the first way."""
+        from fontrx.kernels.coverage import coverage_batch as jax_coverage
+
+        import jax.numpy as jnp
+
+        counts = np.arange(26)
+        product = counts.astype(f32) * f32(1 / 25)
+        quotient = (counts / 25).astype(f32)
+        differing = set(counts[product != quotient].tolist())
+        assert len(differing) == 7
+
+        segs, min_x, max_y, scale = wedge_batch()
+        out = ref(segs, min_x, max_y, scale, 24, 24, 5)[0]
+        count, tie = oracle_counts(segs[0], min_x[0], max_y[0], scale, 24, 24, 5)
+        at = np.isin(count, list(differing))
+        assert at.sum() >= 3 and len(set(count[at].tolist())) >= 2  # not vacuous
+        np.testing.assert_array_equal(out, count.astype(f32) * f32(1 / 25))
+        assert (out[at] != (count[at] / 25).astype(f32)).all()
+
+        jax_out = np.asarray(jax_coverage(
+            jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y), jnp.float32(scale),
+            height=24, width=24, samples=5))[0]
+        assert not ((out != jax_out) & ~tie).any()
+        assert (out[at & ~tie] == jax_out[at & ~tie]).all()
+
+    def test_coverage_to_gray(self):
+        from fontrx.kernels.coverage import coverage_to_gray
+
+        rng = np.random.default_rng(2)
+        cov = rng.random((2, 9, 11)).astype(f32)
+        cov[0, 0, :6] = [0.0, 1.0, 0.5 / 255, 1.5 / 255, 2.5 / 255, 1.25]
+        port = coverage_ref.coverage_to_gray(torch.from_numpy(cov))
+        assert port.dtype == torch.uint8
+        np.testing.assert_array_equal(port.numpy(), np.asarray(coverage_to_gray(cov)))
+
+    def test_samples_below_one_raise(self):
+        with pytest.raises(ValueError, match="samples"):
+            coverage_ref.coverage_batch(*tensors(*wedge_batch()), height=4, width=4, samples=0)
+
+
+class TestRefVsJax:
+    def test_vs_coverage_jnp(self, font):
+        import jax.numpy as jnp
+
+        from fontrx.kernels.coverage import coverage_batch
+
+        for (segs, min_x, max_y, scale), h in ((glyph_batch(font, "AQg@", 64, 64), 64),
+                                               (synthetic_batch(48), 48)):
+            jax_out = np.asarray(coverage_batch(
+                jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y),
+                jnp.float32(scale), height=h, width=h, samples=2))
+            port = ref(segs, min_x, max_y, scale, h, h, 2)
+            assert_ties_only(port, jax_out, segs, min_x, max_y, scale, h, h, 2)
+
+    def test_vs_pallas_interpret(self, font):
+        """K9, run as the JAX package's tests run it: 'B' at 96 px on a
+        128 x 128 grid, 2 x 2 samples."""
+        import jax.numpy as jnp
+
+        from fontrx.kernels.coverage_pallas import coverage_pallas_batch
+
+        g, _ = font.get_glyph("B")
+        segs = glyph_segments(g)[None]
+        grid = RasterGrid.for_glyph_box(
+            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 96, 2048).padded(128, 128)
+        assert (grid.height, grid.width) == (128, 128)
+        min_x, max_y = np.array([grid.min_x], np.int32), np.array([grid.max_y], np.int32)
+        jax_out = np.asarray(coverage_pallas_batch(
+            jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y), jnp.float32(grid.scale),
+            height=128, width=128, samples=2, interpret=True))
+        port = ref(segs, min_x, max_y, grid.scale, 128, 128, 2)
+        assert_ties_only(port, jax_out, segs, min_x, max_y, grid.scale, 128, 128, 2)
+
+    def test_engine_vs_jax_engine(self, font):
+        """The slice's entry point: ``RasterEngine.coverage_batch`` then
+        ``coverage_to_gray``, against the JAX package's."""
+        from fontrx.engine.raster import RasterEngine as JaxEngine
+        from fontrx.kernels.coverage import coverage_to_gray
+
+        segs, min_x, max_y, scale = glyph_batch(font, "Wé8", 32, 36)
+        engine = RasterEngine(device="cpu")
+        cov = engine.coverage_batch(segs, min_x, max_y, scale, height=36, width=36)
+        jengine = JaxEngine(backend="jnp")
+        jcov = jengine.coverage_batch(segs, min_x, max_y, scale, height=36, width=36)
+        assert cov.dtype == torch.float32 and tuple(cov.shape) == (3, 36, 36)
+        assert_ties_only(cov.numpy(), np.asarray(jcov), segs, min_x, max_y, scale, 36, 36, 2)
+        gray = engine.coverage_to_gray(cov).numpy()
+        jgray = np.asarray(coverage_to_gray(jcov))
+        assert_ties_only(gray, jgray, segs, min_x, max_y, scale, 36, 36, 2)
+
+
+class TestWrapper:
+    def test_cpu_tensor_runs_plain_version(self, font):
+        args = glyph_batch(font, "Rx", 40, 48)
+        before = coverage.launches
+        out = coverage.coverage_batch(*tensors(*args), height=48, width=48, samples=3)
+        assert coverage.launches == before
+        assert out.dtype == torch.float32 and out.device.type == "cpu"
+        np.testing.assert_array_equal(out.numpy(), ref(*args, 48, 48, 3))
+
+    def test_cpu_engine_never_launches(self, font):
+        before = coverage.launches
+        RasterEngine(device="cpu").coverage_batch(*glyph_batch(font, "k", 24, 24),
+                                                  height=24, width=24, samples=2)
+        assert coverage.launches == before
+
+
+@pytest.mark.requires_cuda
+class TestKernelOnCard:
+    @pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+    @pytest.mark.parametrize("size,tile", [(256, 256), (64, 64), (40, 48)])
+    def test_kernel_matches_ref(self, cuda, font, k, size, tile):
+        for batch in (glyph_batch(font, "AQg@&%Wb", size, tile), synthetic_batch(tile)):
+            args = tensors(*batch, device=cuda)
+            before = coverage.launches
+            out = coverage.coverage_batch(*args, height=tile, width=tile, samples=k)
+            torch.cuda.synchronize()
+            assert coverage.launches == before + 1
+            want = coverage_ref.coverage_batch(*args, height=tile, width=tile, samples=k)
+            assert out.dtype == torch.float32 and torch.equal(out, want)
+
+    def test_kernel_matches_oracle(self, cuda, font):
+        segs, min_x, max_y, scale = glyph_batch(font, "Q&", 96, 96)
+        out = coverage.coverage_batch(*tensors(segs, min_x, max_y, scale, cuda), height=96,
+                                      width=96, samples=2).cpu().numpy()
+        for i in range(len(segs)):
+            count, _ = oracle_counts(segs[i], min_x[i], max_y[i], scale, 96, 96, 2)
+            np.testing.assert_array_equal(out[i], count.astype(f32) * f32(0.25))
+
+    def test_engine_on_card(self, cuda, font):
+        segs, min_x, max_y, scale = glyph_batch(font, "a@", 64, 64)
+        before = coverage.launches
+        cov = RasterEngine(device=cuda).coverage_batch(segs, min_x, max_y, scale,
+                                                       height=64, width=64, samples=2)
+        assert coverage.launches == before + 1 and cov.device.type == "cuda"
+        np.testing.assert_array_equal(cov.cpu().numpy(), ref(segs, min_x, max_y, scale,
+                                                             64, 64, 2))
+
+    def test_shared_memory_overflow_raises(self, cuda):
+        segs = torch.zeros((1, 4, 3, 2), device=cuda)
+        anchors = torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = coverage.launches
+        with pytest.raises(RuntimeError, match="coverage kernel launch failed"):
+            coverage.coverage_batch(segs, anchors, anchors, 1.0, height=2, width=16384,
+                                    samples=4)
+        assert coverage.launches == before
+
+    def test_wrapper_rejects_bad_inputs(self, cuda):
+        segs = torch.zeros((2, 4, 3, 2), device=cuda)
+        anchors = torch.zeros(2, dtype=torch.int32, device=cuda)
+        with pytest.raises(TypeError):
+            coverage.coverage_batch(segs.double(), anchors, anchors, 1.0, height=8, width=8)
+        with pytest.raises(ValueError):
+            coverage.coverage_batch(segs, anchors[:1], anchors, 1.0, height=8, width=8)
+        with pytest.raises(ValueError):
+            coverage.coverage_batch(segs, anchors, anchors, 0.0, height=8, width=8)
+        with pytest.raises(ValueError):
+            coverage.coverage_batch(segs, anchors, anchors, 1.0, height=8, width=8, samples=0)

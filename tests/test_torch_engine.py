@@ -7,6 +7,7 @@ differ only where the oracle's two FMA modes disagree (XLA:CPU contracts the
 x-polynomial; the port does not).
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -15,21 +16,20 @@ import torch
 
 from fontrx.engine.atlas import pack_charset as jax_pack_charset
 from fontrx.engine.raster import RasterEngine as JaxEngine
-from fontrx.font.font import Font
+from fontrx.font.font import Font as JaxFont
 from fontrx.kernels import oracle
-from fontrx.kernels.grid import RasterGrid
 from fontrx.pack.segments import (
-    PackedBatch,
     glyph_segments,
-    pack_glyph,
-    pack_glyphs,
     pack_glyphs_hybrid,
     pack_glyphs_split,
 )
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
+from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import winding
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import PackedBatch, pack_glyph, pack_glyphs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FONT = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -44,14 +44,33 @@ def font():
 
 
 @pytest.fixture(scope="module")
+def jax_font():
+    return JaxFont.open(str(FONT))
+
+
+CHARS = "AQg@é&iW"  # a compound glyph (é) and a long one (@) among plain ones
+
+
+@pytest.fixture(scope="module")
 def glyphs(font):
-    # a compound glyph (é) and a long one (@) among plain ones
-    return [font.get_glyph(c)[0] for c in "AQg@é&iW"]
+    return [font.get_glyph(c)[0] for c in CHARS]
+
+
+@pytest.fixture(scope="module")
+def jax_glyphs(jax_font):
+    """The same glyphs from the JAX package's font, for its packers that
+    the port does not copy (split, hybrid)."""
+    return [jax_font.get_glyph(c)[0] for c in CHARS]
 
 
 @pytest.fixture
 def engine():
     return RasterEngine(device="cpu")
+
+
+def same_grids(grids, jax_grids):
+    """The port's and the JAX package's grids agree field for field."""
+    return [dataclasses.astuple(g) for g in grids] == [dataclasses.astuple(g) for g in jax_grids]
 
 
 def assert_oracle_exact(out, segments, grids):
@@ -80,7 +99,7 @@ class TestRasterEngine:
         upem = font.info.units_per_em
         out, grids = engine.winding_packed(batch, SIZE, upem, TILE)
         jout, jgrids = JaxEngine(backend="jnp").winding_packed(batch, SIZE, upem, TILE)
-        assert grids == jgrids
+        assert same_grids(grids, jgrids)
         assert out.dtype == torch.int32 and tuple(out.shape) == (len(glyphs), TILE, TILE)
         assert_oracle_exact(out.numpy(), batch.segments, grids)
         assert_ties_only(out.numpy(), np.asarray(jout), batch.segments, grids)
@@ -96,23 +115,25 @@ class TestRasterEngine:
         jout = JaxEngine(backend="jnp").winding_glyph(p.segments, grid)
         assert_ties_only(out[None].numpy(), np.asarray(jout)[None], p.segments[None], [grid])
 
-    def test_winding_packed_banded(self, engine, font, glyphs):
+    def test_winding_packed_banded(self, engine, font, glyphs, jax_glyphs):
         upem = font.info.units_per_em
         out, grids = engine.winding_packed_banded(glyphs, SIZE, upem, TILE)
-        jout, jgrids = JaxEngine(backend="jnp").winding_packed_banded(glyphs, SIZE, upem, TILE)
-        assert grids == jgrids
+        jout, jgrids = JaxEngine(backend="jnp").winding_packed_banded(
+            jax_glyphs, SIZE, upem, TILE)
+        assert same_grids(grids, jgrids)
         segs = pack_glyphs(glyphs, sort="x").segments
         assert_oracle_exact(out.numpy(), segs, grids)
         assert_ties_only(out.numpy(), np.asarray(jout), segs, grids)
 
     @pytest.mark.parametrize("capacity", [16, 32])
-    def test_winding_split(self, engine, font, glyphs, capacity):
+    def test_winding_split(self, engine, font, jax_glyphs, capacity):
+        glyphs = jax_glyphs
         upem = font.info.units_per_em
         split = pack_glyphs_split(glyphs, capacity=capacity)
         assert len(split) > len(glyphs)  # some glyphs really span rows
         out, grids = engine.winding_split(split, SIZE, upem, TILE)
         jout, jgrids = JaxEngine(backend="jnp").winding_split(split, SIZE, upem, TILE)
-        assert grids == jgrids and tuple(out.shape) == (len(glyphs), TILE, TILE)
+        assert same_grids(grids, jgrids) and tuple(out.shape) == (len(glyphs), TILE, TILE)
         whole = [glyph_segments(g) for g in glyphs]
         for i, g in enumerate(grids):
             xs, ys = g.sample_coords()
@@ -123,13 +144,14 @@ class TestRasterEngine:
         for i, g in enumerate(grids):
             assert_ties_only(out[i : i + 1].numpy(), jout[i : i + 1], [whole[i]], [g])
 
-    def test_winding_hybrid(self, engine, font, glyphs):
+    def test_winding_hybrid(self, engine, font, jax_glyphs):
+        glyphs = jax_glyphs
         upem = font.info.units_per_em
         hb = pack_glyphs_hybrid(glyphs, capacity=24)
         assert len(hb.groups) > 1
         out, grids = engine.winding_hybrid(hb, SIZE, upem, TILE)
         jout, jgrids = JaxEngine(backend="jnp").winding_hybrid(hb, SIZE, upem, TILE)
-        assert grids == jgrids and tuple(out.shape) == (len(glyphs), TILE, TILE)
+        assert same_grids(grids, jgrids) and tuple(out.shape) == (len(glyphs), TILE, TILE)
         segs = [glyph_segments(glyphs[gi]) for gi in hb.order]
         assert_oracle_exact(out.numpy(), segs, grids)
         assert_ties_only(out.numpy(), np.asarray(jout), segs, grids)
@@ -174,18 +196,20 @@ class TestRasterEngine:
 
 
 class TestPackCharset:
+    """The port has one packing path; it equals both of the reference's
+    (native C++ and Python)."""
+
     @pytest.mark.parametrize("use_native", [True, False])
     @pytest.mark.parametrize("which", ["ascii", "latin", "cjk"])
-    def test_equals_reference(self, font, use_native, which):
+    def test_equals_reference(self, use_native, which):
+        path = CJK if which == "cjk" else FONT
         if which == "cjk":
-            f = Font.open(str(CJK))
             chars = [0x4E00 + i for i in range(0, 1024, 97)]
         else:
-            f = font
             chars = list(range(33, 127)) if which == "ascii" else "éàüÅß·ﬁ€"
-        port = pack_charset(f, chars, pad_batch_to=None if which != "latin" else 12,
-                            use_native=use_native)
-        ref = jax_pack_charset(f, chars, pad_batch_to=None if which != "latin" else 12,
+        pad = None if which != "latin" else 12
+        port = pack_charset(Font.open(path), chars, pad_batch_to=pad)
+        ref = jax_pack_charset(JaxFont.open(str(path)), chars, pad_batch_to=pad,
                                use_native=use_native)
         assert isinstance(port, PackedBatch)
         for field in ("segments", "seg_counts", "boxes", "advance_widths"):
@@ -193,11 +217,11 @@ class TestPackCharset:
             assert a.dtype == b.dtype, field
             np.testing.assert_array_equal(a, b, err_msg=field)
 
-    def test_native_equals_pure(self, font):
+    def test_native_equals_pure(self, font, jax_font):
         chars = "Hello, World! é"
         np.testing.assert_array_equal(
-            pack_charset(font, chars, use_native=True).segments,
-            pack_charset(font, chars, use_native=False).segments)
+            pack_charset(font, chars).segments,
+            jax_pack_charset(jax_font, chars, use_native=True).segments)
 
 
 class TestConvert:

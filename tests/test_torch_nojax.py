@@ -1,5 +1,6 @@
-"""fontrx_torch and chip_smoke.py import no JAX, and the CUDA build keeps the
-float rules: no FMA contraction, no fast math, the Hopper target."""
+"""fontrx_torch and chip_smoke.py import neither JAX nor anything of the JAX
+package ``fontrx``, and the CUDA build keeps the float rules: no FMA
+contraction, no fast math, the Hopper target."""
 
 import pathlib
 import subprocess
@@ -16,11 +17,26 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = [
     "fontrx_torch",
     "fontrx_torch.device",
+    "fontrx_torch.bound",
     "fontrx_torch.convert",
     "fontrx_torch.entry",
     "fontrx_torch.kernels._build",
     "fontrx_torch.kernels.winding",
     "fontrx_torch.kernels.winding_ref",
+    "fontrx_torch.kernels.coverage",
+    "fontrx_torch.kernels.coverage_ref",
+    "fontrx_torch.kernels.grid",
+    "fontrx_torch.kernels.oracle",
+    "fontrx_torch.font",
+    "fontrx_torch.font.reader",
+    "fontrx_torch.font.ttf",
+    "fontrx_torch.font.charmap",
+    "fontrx_torch.font.glyph",
+    "fontrx_torch.font.font",
+    "fontrx_torch.pack",
+    "fontrx_torch.pack.segments",
+    "fontrx_torch.io",
+    "fontrx_torch.io.qoi",
     "fontrx_torch.engine.raster",
     "fontrx_torch.engine.atlas",
     "chip_smoke",
@@ -36,8 +52,8 @@ def test_imports_without_jax(module):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
         " and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
-        "assert 'fontrx.engine.raster' not in sys.modules\n"
-        "assert 'fontrx.scene' not in sys.modules\n"
+        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'fontrx')\n"
+        "assert not ref, ref\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -53,8 +69,9 @@ def test_nvcc_flags_keep_float_rules():
         assert bad not in flags
 
 
-def test_source_uses_no_fast_intrinsics():
-    src = (_build.CSRC_DIR / "winding.cu").read_text()
+@pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh"])
+def test_source_uses_no_fast_intrinsics(source):
+    src = (_build.CSRC_DIR / source).read_text()
     for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):
         assert bad not in src
 
@@ -67,6 +84,26 @@ def test_library_is_keyed_by_source(tmp_path, monkeypatch):
     second = _build.library_path("winding")
     assert first != second and first.parent == _build.BUILD_DIR
     assert _build.BUILD_DIR == ROOT / "build" / "fontrx_torch"
+
+
+def test_library_is_keyed_by_headers(tmp_path, monkeypatch):
+    (tmp_path / "coverage.cu").write_text('#include "crossings.cuh"\n')
+    (tmp_path / "crossings.cuh").write_text("// a\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path("coverage")
+    (tmp_path / "crossings.cuh").write_text("// b\n")
+    assert _build.library_path("coverage") != first
+
+
+def test_every_kernel_has_a_source_and_signature():
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert sources == sorted(_build._SIGNATURES)
+
+
+def test_port_loads_no_library_of_the_jax_package():
+    for path in [*(ROOT / "fontrx_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "libfontrx_native" not in text and "fontrx/native" not in text, path
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

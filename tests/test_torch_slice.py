@@ -19,14 +19,18 @@ import torch
 import __graft_entry__
 from fontrx.engine.atlas import render_atlas as jax_render_atlas
 from fontrx.engine.raster import RasterEngine as JaxEngine
-from fontrx.font.font import Font
-from fontrx.io import qoi
+from fontrx.font.font import Font as JaxFont
+from fontrx.io import qoi as jax_qoi
 from fontrx.kernels import oracle
-from fontrx.kernels.grid import RasterGrid
-from fontrx.pack.segments import pack_glyph
+from fontrx.kernels.grid import RasterGrid as JaxGrid
+from fontrx.pack.segments import pack_glyph as jax_pack_glyph
 from fontrx_torch.engine.atlas import AtlasLayout, pack_charset, render_atlas
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.entry import _example_batch, entry
+from fontrx_torch.font.font import Font
+from fontrx_torch.io import qoi
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import pack_glyph
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FONT = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -36,6 +40,11 @@ CJK = ROOT / "tests" / "data" / "cjktest.ttf"
 @pytest.fixture(scope="module")
 def font():
     return Font.open(str(FONT))
+
+
+@pytest.fixture(scope="module")
+def jax_font():
+    return JaxFont.open(str(FONT))
 
 
 def tie_mask(segments, cx, cy):
@@ -49,9 +58,9 @@ def test_vendored_font_is_dejavu_sans(font):
 
 
 @pytest.mark.parametrize("chars,size", [("fontrx!", 40), ("Wg@é", 72)])
-def test_render_atlas_matches_jax(font, chars, size):
+def test_render_atlas_matches_jax(font, jax_font, chars, size):
     sheet, layout = render_atlas(font, chars, size, size, RasterEngine(device="cpu"))
-    jsheet, jlayout = jax_render_atlas(font, chars, size, size, JaxEngine(backend="jnp"))
+    jsheet, jlayout = jax_render_atlas(jax_font, chars, size, size, JaxEngine(backend="jnp"))
     assert isinstance(layout, AtlasLayout)
     assert dataclasses.astuple(layout) == dataclasses.astuple(jlayout)
     assert sheet.dtype == np.uint8 and sheet.shape == jsheet.shape
@@ -70,7 +79,7 @@ def test_render_atlas_matches_jax(font, chars, size):
 
 def test_cjk_atlas_matches_jax():
     """The <= 128 px route (K2's on the TPU) on a few dense CJK glyphs."""
-    f = Font.open(str(CJK))
+    f = Font.open(CJK)
     chars = [0x4E00 + i for i in (0, 311, 777)]
     batch = pack_charset(f, chars)
     assert batch.segments.shape[1] >= 192
@@ -87,24 +96,27 @@ def test_cjk_atlas_matches_jax():
         assert not (diff & ~tie_mask(batch.segments[i], cx, cy)).any()
 
 
-def quick_start(engine, font):
+def quick_start(engine, font, pack_glyph, grid_type, qoi):
+    """The README quick start, with one package's front end."""
     glyph, _advance = font.get_glyph("A")
     packed = pack_glyph(glyph)
-    grid = RasterGrid.for_glyph_box(packed.box, 96, font.info.units_per_em)
+    grid = grid_type.for_glyph_box(packed.box, 96, font.info.units_per_em)
     fill = np.asarray(engine.fill(engine.winding_glyph(packed.segments, grid)))
     return qoi.encode_rgb(np.repeat(fill[:, :, None], 3, axis=2)), packed, grid
 
 
-def test_quick_start_qoi(font):
-    data, packed, grid = quick_start(RasterEngine(device="cpu"), font)
+def test_quick_start_qoi(font, jax_font):
+    data, packed, grid = quick_start(RasterEngine(device="cpu"), font, pack_glyph,
+                                     RasterGrid, qoi)
     decoded = qoi.decode(data)
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0, 255, 0)
     assert decoded.shape == (grid.height, grid.width, 3)
     for c in range(3):
         np.testing.assert_array_equal(decoded[:, :, c], want)
 
-    jdata, _, _ = quick_start(JaxEngine(backend="jnp"), font)
-    diff = (qoi.decode(jdata) != decoded).any(axis=2)
+    jdata, _, _ = quick_start(JaxEngine(backend="jnp"), jax_font, jax_pack_glyph, JaxGrid,
+                              jax_qoi)
+    diff = (jax_qoi.decode(jdata) != decoded).any(axis=2)
     xs, ys = grid.sample_coords()
     assert not (diff & ~tie_mask(packed.segments, xs[None, :], ys[:, None])).any()
 

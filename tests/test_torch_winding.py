@@ -20,18 +20,18 @@ import pytest
 import torch
 
 from benchmarks.cjk import UPEM, synthetic_strokes
-from fontrx.font.font import Font
 from fontrx.kernels import oracle
-from fontrx.kernels.grid import RasterGrid
-from fontrx.pack.segments import glyph_segments, pack_glyphs
+from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import winding, winding_ref
+from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.pack.segments import glyph_segments, pack_glyphs
 
 FONT = pathlib.Path(__file__).resolve().parents[1] / "fontrx_torch" / "data" / "DejaVuSans.ttf"
 
 
 @pytest.fixture(scope="module")
 def font():
-    return Font.open(str(FONT))
+    return Font.open(FONT)
 
 
 @pytest.fixture
