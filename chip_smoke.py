@@ -1,5 +1,5 @@
-"""Drive fontrx_torch's glyph fill and tile coverage paths once on one CUDA
-card, and check them.
+"""Drive fontrx_torch's glyph fill, tile coverage and SDF atlas paths once on
+one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -21,11 +21,15 @@ read just after:
      -> QOI encode -> decode;
   4. ``fontrx_torch.entry.entry()``'s raster step on its example batch;
 - **tile coverage**: 2 x 2 supersampled coverage of both atlases through
-  ``RasterEngine.coverage_batch``, then ``coverage_to_gray``.
+  ``RasterEngine.coverage_batch``, then ``coverage_to_gray``;
+- **SDF atlas** (BASELINE config 4): signed distance fields (8 px spread)
+  of ascii256, cjk64 and cjk32 (the CJK batch on 32 x 32 grids) through
+  ``RasterEngine.sdf_batch`` (the winding kernel for the sign, then the
+  distance kernel), then ``sdf_to_u8``.
 
 It then checks every result: each kernel against its plain PyTorch version
-on every pixel, the atlases against the NumPy oracle (``contract=False``)
-on sampled glyphs, and the quick start against the oracle's fill, and
+on every pixel (the SDF as int32 bit patterns), the atlases against the
+NumPy oracle (``contract=False``; for the SDF, its sign) on sampled glyphs, and the quick start against the oracle's fill, and
 times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
 (what a caller waits for, host launch overhead included). Any failure raises
@@ -46,7 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fontrx_torch.bound import bound_ms, solve_work
+from fontrx_torch.bound import bound_ms, sdf_work, solve_work
 from fontrx_torch.convert import grid_anchors, packed_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
@@ -54,7 +58,8 @@ from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.entry import entry
 from fontrx_torch.font.font import Font
 from fontrx_torch.io import qoi
-from fontrx_torch.kernels import _build, coverage, coverage_ref, oracle, winding, winding_ref
+from fontrx_torch.kernels import (
+    _build, coverage, coverage_ref, oracle, sdf, sdf_ref, winding, winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import pack_glyph
 
@@ -70,6 +75,10 @@ ATLASES = (
 ORACLE_STRIDE = 13           # winding: every 13th glyph, as bench.py samples
 COVERAGE_ORACLE_STRIDE = 52  # coverage costs the oracle k*k maps a glyph
 SAMPLES = 2                  # k of the k x k coverage (the reference's MSAA workloads)
+# (name, packed atlas, font size = tile size): BASELINE config 4, "SDF atlas
+# for 1000 CJK glyphs at 32/64px", beside the ASCII headline atlas
+SDF_ATLASES = (("ascii256", "ascii256", 256), ("cjk64", "cjk64", 64), ("cjk32", "cjk64", 32))
+SDF_ORACLE_STRIDE = 52
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -122,6 +131,18 @@ def bound(batch, args, out, *, row_offsets, columns: int, samples_per_pixel: int
                                 height=out.shape[1], row_offsets=row_offsets, columns=columns)
     ops += out.numel() * samples_per_pixel
     return (*bound_ms(nbytes, ops), ops, crossings)
+
+
+def sdf_bound(args, out):
+    """The SDF distance kernel's bound, as ``bound``: the segments, anchors
+    and winding map read once and the output written once, against the
+    operations of the (segment, pixel) pairs the function needs
+    (``fontrx_torch.bound.sdf_work``, counted on the card)."""
+    seg, min_x, max_y, scale = args
+    nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y, out))
+    nbytes += out.numel() * 4  # the int32 winding map
+    ops, pairs = sdf_work(seg, min_x, max_y, scale, height=out.shape[1], width=out.shape[2])
+    return (*bound_ms(nbytes, ops), ops, pairs)
 
 
 def coverage_oracle(segments, grid: RasterGrid, k: int) -> np.ndarray:
@@ -183,7 +204,7 @@ def main() -> None:
     engine = RasterEngine(device=dev)
 
     # --- winding fill path, once, through the user-facing entry points ----
-    winding.launches = coverage.launches = 0
+    winding.launches = coverage.launches = sdf.launches = 0
     outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = winding.launches
@@ -212,7 +233,7 @@ def main() -> None:
           f"{coverage.launches} coverage")
 
     # --- tile coverage path, once ------------------------------------------
-    winding.launches = coverage.launches = 0
+    winding.launches = coverage.launches = sdf.launches = 0
     cov_outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = coverage.launches
@@ -225,9 +246,30 @@ def main() -> None:
     print(f"coverage path: {coverage_launches} coverage kernel launches, "
           f"{winding.launches} winding")
 
+    # --- SDF atlas path, once -------------------------------------------------
+    fonts = {name: font_path for name, font_path, _, _ in ATLASES}
+    sdf_atlases = {}
+    for name, source, size in SDF_ATLASES:
+        batch = atlases[source][0]
+        upem = Font.open(fonts[source]).info.units_per_em
+        grids = [RasterGrid.fixed_tile(tuple(box), size, upem, size)
+                 for box in np.asarray(batch.boxes)]
+        sdf_atlases[name] = (batch, grids, size)
+    winding.launches = coverage.launches = sdf.launches = 0
+    sdf_outputs = {}
+    for name, (batch, grids, size) in sdf_atlases.items():
+        before = sdf.launches
+        out = engine.sdf_batch(batch.segments, *grid_anchors(grids), height=size, width=size)
+        sdf_outputs[name] = (out, engine.sdf_to_u8(out))
+        torch.cuda.synchronize()
+        check(sdf.launches > before, f"{name} did not launch the SDF kernel")
+    sdf_launches, sdf_winding_launches = sdf.launches, winding.launches
+    print(f"SDF path: {sdf_launches} SDF kernel launches, {sdf_winding_launches} winding, "
+          f"{coverage.launches} coverage")
+
     # --- checks ------------------------------------------------------------
-    record = {"winding": {}, "coverage": {}}
-    max_err = {"winding": 0, "coverage": 0.0}
+    record = {"winding": {}, "coverage": {}, "sdf": {}}
+    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0}
     for name, (batch, grids, size) in atlases.items():
         args = packed_to_device(batch, grids, dev)
         b = len(grids)
@@ -301,6 +343,51 @@ def main() -> None:
                   f"crossings); plain version "
                   f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)")
 
+    for name, (batch, grids, size) in sdf_atlases.items():
+        args = packed_to_device(batch, grids, dev)
+        b = len(grids)
+        out, u8 = sdf_outputs[name]
+        t0 = time.perf_counter()
+        ref = sdf_ref.sdf_batch(*args, height=size, width=size)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        check(out.shape == ref.shape == (b, size, size) and out.dtype == torch.float32,
+              f"{name} SDF shape")
+        check(bool(torch.isfinite(out).all()) and float(out.abs().max()) <= sdf_ref.SPREAD_PX,
+              f"{name} SDF not finite or outside the spread")
+        diff = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        max_err["sdf"] = max(max_err["sdf"], float((out - ref).abs().max()))
+        check(diff == 0, f"{name}: {diff} SDF pixels differ from sdf_ref (bit patterns)")
+        check(torch.equal(u8, sdf_ref.sdf_to_u8(ref)), f"{name} sdf_to_u8")
+        inside = ~torch.signbit(out).cpu().numpy()
+        sampled = range(0, b, SDF_ORACLE_STRIDE)
+        mism = 0
+        for i in sampled:
+            xs, ys = grids[i].sample_coords()
+            wo = oracle.winding_at(batch.segments[i], xs[None, :], ys[:, None], contract=False)
+            mism += int(((wo != 0) != inside[i]).sum())
+        check(mism == 0, f"{name}: {mism} SDF signs differ from the oracle")
+        print(f"{name} SDF {size}x{size}: 0 of {out.numel()} pixels differ from sdf_ref "
+              f"(int32 bit patterns; sdf_ref took {ref_s:.2f} s); sdf_to_u8 equal; 0 of "
+              f"{len(sampled) * size * size} signs differ from the oracle ({len(sampled)} "
+              f"glyphs); within the band {int((out.abs() < sdf_ref.SPREAD_PX).sum())}")
+
+        w = winding.winding_batch(*args, height=size, width=size)
+        b_ms, bound_by, ops, pairs = sdf_bound(args, out)
+        kernel_ms = graph_ms(
+            lambda: sdf.sdf_from_winding(*args, w, height=size, width=size))
+        call_ms = cuda_ms(lambda: sdf.sdf_batch(*args, height=size, width=size), inner=10)
+        plain_ms = cuda_ms(
+            lambda: sdf_ref.sdf_from_winding(*args, w, height=size, width=size),
+            inner=1, reps=3, warmup=1)
+        record["sdf"][name] = dict(ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms,
+                                   bound_ms=b_ms, bound_by=bound_by, bound_ops=ops,
+                                   needed_pairs=pairs)
+        print(f"{name} sdf: kernel {kernel_ms:.4f} ms on the device "
+              f"({b / kernel_ms * 1e3:.0f} glyphs/s, {pairs} needed pairs), {call_ms:.4f} ms "
+              f"per wrapper call (winding + distance); bound {b_ms:.4f} ms ({bound_by}; "
+              f"{ops} FP32 ops); plain version {plain_ms:.3f} ms")
+
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
     check(decoded.shape == (grid.height, grid.width, 3), "quick start QOI shape")
@@ -332,14 +419,15 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0])
 
     def entry_of(kname, replaces, launches, **extra):
-        main, cjk = record[kname]["ascii256"], record[kname]["cjk64"]
+        main = record[kname]["ascii256"]
         return {
             "name": kname, "route": "cuda", "source": f"fontrx_torch/csrc/{kname}.cu",
             "replaces": replaces, **extra, "launches": launches,
             "max_abs_err": max_err[kname],
-            # ascii256 in the main keys, cjk64 beside them
+            # ascii256 in the main keys, the other atlases beside them
             **main, "library_ms": None,
-            **{f"cjk64_{key}": value for key, value in cjk.items()},
+            **{f"{atlas}_{key}": value for atlas, rec in record[kname].items()
+               if atlas != "ascii256" for key, value in rec.items()},
         }
 
     print(json.dumps({"kernels": [
@@ -347,6 +435,9 @@ def main() -> None:
                  also_replaces="fontrx/kernels/winding_dense.py:297"),
         entry_of("coverage", "fontrx/kernels/coverage_pallas.py:211", coverage_launches,
                  samples=SAMPLES),
+        entry_of("sdf", "fontrx/kernels/sdf_pallas.py:180", sdf_launches,
+                 also_replaces="fontrx/kernels/sdf_pallas.py:605",
+                 spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches),
     ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,8 +16,10 @@ its original by a test. It imports neither JAX nor anything of ``fontrx``.
   ``kernels.winding_ref`` its plain PyTorch version
 - ``kernels.coverage``    the CUDA k x k coverage kernel, and
   ``kernels.coverage_ref`` its plain PyTorch version
-- ``engine.raster``       ``RasterEngine``: batched winding maps, fills and
-  coverage
+- ``kernels.sdf``         the CUDA SDF kernel, and ``kernels.sdf_ref`` its
+  plain PyTorch version
+- ``engine.raster``       ``RasterEngine``: batched winding maps, fills,
+  coverage and SDF atlases
 - ``engine.atlas``        character-set packing and atlas rendering
 - ``convert``             host batches and grids to tensors on a device
 - ``entry``               ``entry()``: the raster step and an example batch

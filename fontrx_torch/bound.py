@@ -26,11 +26,25 @@ Per (segment, sample row) pair:
 Per crossing and sub-column, one operation places it among the columns.
 Per sample, one operation sums or tests its winding. Divides and square
 roots count as one operation each, so the bound is a floor.
+
+The SDF's distance program (``csrc/sdf.cu``) has no branch that depends on
+the data. Its work is the (segment, pixel) pairs the function needs times
+the least count of operations per pair (``SDF_PAIR_OPS``), plus the terms
+each segment needs once and a few operations per pixel (``sdf_work``). A
+pair is needed when the pixel's sample point lies within the spread of the
+segment's control hull box: the curve lies inside its hull, so a segment
+farther off cannot change the clamped result, whatever a kernel culls
+(``sdf_pairs``). What depends only on the segment and a constant ``t``
+(``t = 0``, ``t = 1`` and the Newton start values) is counted once per
+segment, not per pair.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from fontrx_torch.kernels import winding_ref
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -90,3 +104,89 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     """The bound in ms, and what binds it: ``"bytes"`` or ``"operations"``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# Operations of the SDF program (csrc/sdf.cu) at their least, a compare or
+# a select of the clamp and the min counting one each, with the starts and
+# steps of the Pallas kernel (sdf_pallas.py:42-43):
+SDF_STARTS = 3
+SDF_ITERS = 3
+# per (segment, pixel) pair: qx, qy, qa, qb and k1b
+SDF_PAIR_SETUP = 9
+# dist_sq(0) = qx*qx + qy*qy
+SDF_DIST_SQ_0 = 3
+# dist_sq(1): (qx + 2 ax) + bx2, the same in y, dx*dx + dy*dy
+SDF_DIST_SQ_1 = 7
+# dist_sq(t): 2t, t*t, dx and dy (4 each), dx*dx + dy*dy
+SDF_DIST_SQ = 13
+# the first Newton step, at the start value t0: f = (c + k1b)*t0 + qa and
+# df = d + k1b, with c and d per segment (4), df == 0 (1), t - f/df (2),
+# the clamp (2)
+SDF_NEWTON_FIRST = 9
+# a later step: f (6), df (4), df == 0 (1), t - f/df (2), the clamp (2)
+SDF_NEWTON_STEP = 15
+# the set-up, dist_sq at 0 and 1 and their min; per start the steps,
+# dist_sq and a min; the min into the pixel's running d2
+SDF_PAIR_OPS = (SDF_PAIR_SETUP + SDF_DIST_SQ_0 + SDF_DIST_SQ_1 + 1
+                + SDF_STARTS * (SDF_NEWTON_FIRST + (SDF_ITERS - 1) * SDF_NEWTON_STEP
+                                + SDF_DIST_SQ + 1) + 1)
+# per segment: ax, ay, bx2, by2, k3, k2, k1, 3 k3, 2 k2 (21), 2 ax and 2 ay
+# (2), per start c = (k3 t0 + k2) t0 and d = (3 k3 t0 + 2 k2) t0 (6)
+SDF_SEGMENT_TERMS = 21 + 2 + 6 * SDF_STARTS
+# per pixel: the square root, * scale, min(., spread), * sign; per column
+# and per row of a glyph, the divide of its sample coordinate
+SDF_PIXEL = 4
+SDF_LINE = 1
+
+# (glyph, segment, pixel) elements of one chunk of the pair count
+_PAIR_CHUNK = 1 << 25
+
+
+def sdf_pairs(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
+    """Per live segment, the pixels whose sample point lies within
+    ``spread_px`` of its control hull box: int64 ``[B, S]``.
+
+    Tensors or arrays; the count runs on the tensors' device, in float64
+    from the float32 sample points (``winding_ref.sample_coords``) and hull
+    boxes: ``dx*dx + dy*dy <= (spread / scale)**2`` with ``dx``, ``dy`` the
+    distances from the point to the box along each axis.
+    """
+    seg = torch.as_tensor(segments)
+    dev = seg.device
+    min_x = torch.as_tensor(min_x, dtype=torch.int32, device=dev)
+    max_y = torch.as_tensor(max_y, dtype=torch.int32, device=dev)
+    px, py = winding_ref.sample_coords(min_x, max_y, scale, height=height, width=width)
+    dead = (seg == 0).flatten(-2).all(dim=-1)  # [B, S]
+    hull = seg.double()
+    h0 = hull.amin(dim=2).masked_fill(dead[..., None], torch.inf)  # [B, S, 2]
+    h1 = hull.amax(dim=2).masked_fill(dead[..., None], -torch.inf)
+
+    def axis_sq(lo, hi, p):  # [B, S], [B, S], [B, N] -> [B, S, N]
+        p = p.double()[:, None, :]
+        d = torch.maximum(torch.maximum(lo[..., None] - p, p - hi[..., None]),
+                          torch.zeros((), dtype=torch.float64, device=dev))
+        return d * d
+
+    dx2 = axis_sq(h0[..., 0], h1[..., 0], px)  # [B, S, W]
+    dy2 = axis_sq(h0[..., 1], h1[..., 1], py)  # [B, S, H]
+    margin = float(f32(spread_px)) / float(f32(scale))
+    b, s = dead.shape
+    counts = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    step = max(1, _PAIR_CHUNK // max(s * height * width, 1))
+    for b0 in range(0, b, step):
+        d2 = dy2[b0 : b0 + step, :, :, None] + dx2[b0 : b0 + step, :, None, :]
+        counts[b0 : b0 + step] = (d2 <= margin * margin).sum(dim=(2, 3))
+    return counts
+
+
+def sdf_work(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
+    """FP32 operations of the SDF on these inputs, and the (segment, pixel)
+    pairs it needs: ``(ops, pairs)``."""
+    counts = sdf_pairs(segments, min_x, max_y, scale, height=height, width=width,
+                       spread_px=spread_px)
+    pairs = int(counts.sum())
+    segs = int((counts > 0).sum())
+    b = counts.shape[0]
+    ops = (pairs * SDF_PAIR_OPS + segs * SDF_SEGMENT_TERMS
+           + b * height * width * SDF_PIXEL + b * (height + width) * SDF_LINE)
+    return ops, pairs

@@ -1,13 +1,13 @@
-"""Raster engine: batched winding maps, fills and k x k coverage on one
-device.
+"""Raster engine: batched winding maps, fills, k x k coverage and signed
+distance fields on one device.
 
-The port of ``fontrx.engine.raster.RasterEngine``'s winding and tile
-coverage paths. Inputs go to the engine's device; a CUDA device runs the
-CUDA kernels and the CPU runs their plain PyTorch versions
-(``fontrx_torch.kernels.winding`` and ``.coverage``). One kernel of each
-serves every tile size, so the TPU's split at 128 px, its padding to
-128-row strips, its per-launch batch cap and its choice between coverage
-strategies are gone.
+The port of ``fontrx.engine.raster.RasterEngine``'s winding, tile coverage
+and SDF atlas paths. Inputs go to the engine's device; a CUDA device runs
+the CUDA kernels and the CPU runs their plain PyTorch versions
+(``fontrx_torch.kernels.winding``, ``.coverage`` and ``.sdf``). One kernel
+of each serves every tile size, so the TPU's split at 128 px, its padding
+to 128-row strips, its per-launch batch cap, its choice between coverage
+strategies and its flat/tiled SDF routes are gone.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from fontrx_torch.convert import grid_anchors, to_device
-from fontrx_torch.kernels import coverage, coverage_ref, winding
+from fontrx_torch.kernels import coverage, coverage_ref, sdf, winding
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import PackedBatch, pack_glyphs
 
@@ -144,6 +144,26 @@ class RasterEngine:
         )
 
     coverage_to_gray = staticmethod(coverage_ref.coverage_to_gray)
+
+    def sdf_batch(
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
+        spread_px: float = 8.0,
+    ) -> torch.Tensor:
+        """Batched signed distance fields (BASELINE config 4): float32
+        ``[B, height, width]`` in pixels on the engine's device, positive
+        inside, clamped at ``+-spread_px`` on every device (the TPU
+        kernels' contract). Same inputs as ``winding_batch``.
+
+        There is no ``pack`` argument and no ``pack_sdf``: the kernel culls
+        segments per pixel tile itself, so the host packs nothing."""
+        segments, min_x, max_y, scale = to_device(
+            segments, min_x, max_y, scale, self.device)
+        return sdf.sdf_batch(
+            segments, min_x, max_y, scale, height=height, width=width,
+            spread_px=spread_px,
+        )
+
+    sdf_to_u8 = staticmethod(sdf.sdf_to_u8)
 
     @staticmethod
     def fill(winding_map: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,14 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
     ),
+    "sdf": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
+         ctypes.c_void_p,                                     # winding
+         ctypes.c_float, ctypes.c_float,                      # scale, spread
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
+         ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -67,8 +67,13 @@ def winding_batch(
             segments, min_x, max_y, scale, height=height, width=width,
             sample_offset=sample_offset,
         )
-    global launches
     b, s, scale = check_inputs(segments, min_x, max_y, scale, height, width)
+    return launch(segments, min_x, max_y, scale, b, s, height, width, sample_offset)
+
+
+def launch(segments, min_x, max_y, scale, b, s, height, width, sample_offset=(0.0, 0.0)):
+    """Launch the kernel on inputs that ``check_inputs`` has passed."""
+    global launches
     ox, oy = (np.float32(v) for v in sample_offset)
 
     out = torch.empty((b, height, width), dtype=torch.int32, device=segments.device)

@@ -1,17 +1,27 @@
 """fontrx_torch.bound counts the root-solve work these inputs need: by hand on
 a square and a parabola, and against a scalar loop over the float program
-on glyphs of DejaVu Sans."""
+on glyphs of DejaVu Sans. For the SDF it counts the (segment, pixel) pairs
+the function needs, fewer than the JAX package's per-tile lists
+(``pack_sdf_tiles``) hold, and the least operations of the distance
+program, held to a scalar loop that counts each operation as it runs and
+gives the plain version's distances."""
 
+import operator
 import pathlib
 
 import numpy as np
 import pytest
 
-from fontrx_torch.bound import FP32_OPS_PER_S, HBM_BYTES_PER_S, bound_ms, solve_work
+import torch
+
+from fontrx_torch.bound import (
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms, sdf_pairs,
+    sdf_work, solve_work)
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font.font import Font
 from fontrx_torch.kernels.coverage_ref import sample_offsets
 from fontrx_torch.kernels.grid import RasterGrid
+from fontrx_torch.kernels.sdf_ref import sdf_batch as sdf_plain
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FONT = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -108,3 +118,180 @@ def test_bound_takes_the_larger_time():
     assert bound_ms(int(HBM_BYTES_PER_S * 1e-3), 0) == (1.0, "bytes")
     assert bound_ms(0, int(FP32_OPS_PER_S * 1e-3)) == (1.0, "operations")
     assert bound_ms(int(HBM_BYTES_PER_S * 1e-3), int(FP32_OPS_PER_S * 2e-3))[1] == "operations"
+
+
+class Counted:
+    """A float32 that counts every arithmetic operation and compare made on
+    it (a select is free: the compare that drives it is counted)."""
+
+    ops = 0
+
+    def __init__(self, v):
+        self.v = f32(v)
+
+    def _op(self, other, fn, swap=False):
+        Counted.ops += 1
+        o = other.v if isinstance(other, Counted) else f32(other)
+        return fn(o, self.v) if swap else fn(self.v, o)
+
+    def __add__(self, o): return Counted(self._op(o, operator.add))
+    def __radd__(self, o): return Counted(self._op(o, operator.add, True))
+    def __sub__(self, o): return Counted(self._op(o, operator.sub))
+    def __rsub__(self, o): return Counted(self._op(o, operator.sub, True))
+    def __mul__(self, o): return Counted(self._op(o, operator.mul))
+    def __rmul__(self, o): return Counted(self._op(o, operator.mul, True))
+    def __truediv__(self, o): return Counted(self._op(o, operator.truediv))
+    def __lt__(self, o): return bool(self._op(o, operator.lt))
+    def __gt__(self, o): return bool(self._op(o, operator.gt))
+    def __eq__(self, o): return bool(self._op(o, operator.eq))
+
+
+def _sdf_segment_terms(q):
+    """What one segment needs once: its terms, and per start value the
+    first Newton step's ``c = (k3 t0 + k2) t0`` and ``d = (3 k3 t0 + 2 k2) t0``."""
+    p0x, p0y, p1x, p1y, p2x, p2y = (Counted(v) for v in q)
+    ax, ay = p1x - p0x, p1y - p0y
+    bx2, by2 = p0x - 2 * p1x + p2x, p0y - 2 * p1y + p2y
+    k3 = bx2 * bx2 + by2 * by2
+    k2 = 3 * (ax * bx2 + ay * by2)
+    k1 = 2 * (ax * ax + ay * ay)
+    k3x3, k2x2 = 3 * k3, 2 * k2
+    terms = (p0x, p0y, ax, ay, bx2, by2, k1, k3, k2, k3x3, k2x2, 2 * ax, 2 * ay)
+    starts = [(t0, (k3 * t0 + k2) * t0, (k3x3 * t0 + k2x2) * t0)
+              for t0 in (f32(1 / 6), f32(3 / 6), f32(5 / 6))]
+    return terms, starts
+
+
+def _sdf_pair(terms, starts, px, py):
+    """The squared distance of one (segment, pixel) pair, its constant-t
+    terms folded: the float values of ``csrc/sdf.cu``'s program."""
+    p0x, p0y, ax, ay, bx2, by2, k1, k3, k2, k3x3, k2x2, ax2, ay2 = terms
+    qx, qy = p0x - px, p0y - py
+    qa = qx * ax + qy * ay
+    qb = qx * bx2 + qy * by2
+    k1b = k1 + qb
+
+    def vmin(a, b):
+        return a if a < b else b
+
+    def step(t, f, df):
+        df = Counted(1) if df == 0 else df
+        t = t - f / df
+        low, high = t < 0, t > 1
+        return Counted(0) if low else Counted(1) if high else t
+
+    def dist_sq(t):
+        t2, tt = 2 * t, t * t
+        dx = qx + t2 * ax + tt * bx2
+        dy = qy + t2 * ay + tt * by2
+        return dx * dx + dy * dy
+
+    dx1, dy1 = qx + ax2 + bx2, qy + ay2 + by2
+    best = vmin(qx * qx + qy * qy, dx1 * dx1 + dy1 * dy1)
+    for t0, c, d in starts:
+        t = step(Counted(t0), (c + k1b) * t0 + qa, d + k1b)
+        for _ in range(2):
+            t = step(t, ((k3 * t + k2) * t + k1b) * t + qa, (k3x3 * t + k2x2) * t + k1b)
+        best = vmin(best, dist_sq(t))
+    return best
+
+
+def _sdf_scalar_work(segs, min_x, max_y, scale, h, w, spread):
+    """Every pixel and segment in Python floats: the pair rule, then the
+    counted program. Returns ``(ops, pairs)`` and the clamped distances."""
+    Counted.ops = 0
+    pairs = 0
+    margin = float(f32(spread)) / float(f32(scale))
+    dist = np.zeros((len(segs), h, w), f32)
+    for b in range(len(segs)):
+        pxs = [Counted(min_x[b] + c) / f32(scale) for c in range(w)]
+        pys = [Counted(max_y[b] - r) / f32(scale) for r in range(h)]
+        d2 = [[Counted(np.inf)] * w for _ in range(h)]
+        for q in segs[b].reshape(-1, 6):
+            if not q.any():
+                continue
+            xs, ys = [float(v) for v in q[0::2]], [float(v) for v in q[1::2]]
+            seg_terms = None
+            for r in range(h):
+                for c in range(w):
+                    px, py = pxs[c], pys[r]
+                    dx = max(min(xs) - float(px.v), float(px.v) - max(xs), 0.0)
+                    dy = max(min(ys) - float(py.v), float(py.v) - max(ys), 0.0)
+                    if not dx * dx + dy * dy <= margin * margin:
+                        continue
+                    seg_terms = seg_terms or _sdf_segment_terms(q)
+                    best = _sdf_pair(*seg_terms, px, py)
+                    d2[r][c] = d2[r][c] if d2[r][c] < best else best
+                    pairs += 1
+        for r in range(h):
+            for c in range(w):
+                dist[b, r, c] = min(np.sqrt(d2[r][c].v) * f32(scale), f32(spread))
+    # per pixel: the square root, * scale, min(., spread), * sign
+    return (Counted.ops + len(segs) * h * w * 4, pairs), dist
+
+
+@pytest.mark.parametrize("spread", [8.0, 2.5])
+def test_sdf_ops_match_the_scalar_program(spread):
+    """A square and a parabola on a 20 x 36 raster at scale 1/4: a segment
+    near no pixel and a padding row. The folded program gives the plain
+    version's distances bit for bit."""
+    segs = np.zeros((1, 6, 3, 2), f32)
+    segs[0, :4] = SQUARE * 8 + 4
+    segs[0, 4] = PARABOLA[0] * 2 + [200, 0]
+    scale = f32(0.25)
+    args = (segs, np.array([-2], np.int32), np.array([18], np.int32), scale)
+    got = sdf_work(*args, height=20, width=36, spread_px=spread)
+    with np.errstate(all="ignore"):
+        want, dist = _sdf_scalar_work(*args, 20, 36, spread)
+    assert got == want
+    assert 0 < got[1] < 5 * 20 * 36  # the rule drops pairs
+    assert sdf_pairs(*args, height=20, width=36, spread_px=spread)[0, 4] == 0  # the parabola
+    plain = sdf_plain(*(torch.from_numpy(a) for a in args[:3]), float(scale), height=20,
+                      width=36, spread_px=spread).abs().numpy()
+    np.testing.assert_array_equal(dist.view(np.int32), plain.view(np.int32))
+
+
+def test_sdf_pair_ops_by_hand():
+    # set-up 9, dist_sq at 0 (3) and 1 (7) and their min; per start a first
+    # step at t0 (9), two steps of 15, dist_sq (13) and a min; then the min
+    # into d2
+    assert SDF_PAIR_OPS == 9 + 3 + 7 + 1 + 3 * (9 + 2 * 15 + 13 + 1) + 1 == 180
+    assert SDF_SEGMENT_TERMS == 21 + 2 + 3 * 6
+
+
+def random_sdf_batch(size):
+    """The JAX package's SDF test batch (96 random quadratics, 5 padding
+    rows, ``min_x = 3``)."""
+    rng = np.random.default_rng(1234)
+    p0 = rng.uniform(100, 1900, (3, 96, 2))
+    p1 = p0 + rng.uniform(-80, 80, (3, 96, 2))
+    p2 = p0 + rng.uniform(-80, 80, (3, 96, 2))
+    seg = np.stack([p0, p1, p2], 2).astype(f32)
+    seg[:, -5:] = 0.0
+    return seg, np.full(3, 3, np.int32), np.full(3, size - 1, np.int32), f32(size / 2048)
+
+
+@pytest.mark.parametrize("size", [32, 64])
+def test_sdf_pairs_within_the_tile_lists(size):
+    """The needed pairs, per segment, against a loop over segments in
+    NumPy; in all, fewer than K11's 16 x 16 tile lists cover."""
+    from fontrx.kernels.sdf_pallas import pack_sdf_tiles
+
+    seg, min_x, max_y, scale = random_sdf_batch(size)
+    counts = sdf_pairs(seg, min_x, max_y, scale, height=size, width=size).numpy()
+    margin = 8.0 / float(scale)
+    for b in range(3):
+        px = ((min_x[b] + np.arange(size)).astype(f32) / scale).astype(np.float64)
+        py = ((max_y[b] - np.arange(size)).astype(f32) / scale).astype(np.float64)
+        for s in range(96):
+            hull = seg[b, s].astype(np.float64)
+            dx = np.maximum(np.maximum(hull[:, 0].min() - px, px - hull[:, 0].max()), 0)
+            dy = np.maximum(np.maximum(hull[:, 1].min() - py, py - hull[:, 1].max()), 0)
+            want = 0 if s >= 91 else int((dx[None] ** 2 + dy[:, None] ** 2 <= margin ** 2).sum())
+            assert counts[b, s] == want
+    chunk = 8
+    stream, _cnts, _tile_ids, cap = pack_sdf_tiles(seg, min_x, max_y, scale, size, size,
+                                                   tile_h=16, tile_w=16, seg_chunk=chunk)
+    listed = int((stream.reshape(-1, 6) != 0).any(axis=-1).sum()) * 256
+    _ops, pairs = sdf_work(seg, min_x, max_y, scale, height=size, width=size)
+    assert 0 < pairs == counts.sum() < listed

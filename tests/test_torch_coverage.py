@@ -215,6 +215,53 @@ class TestRefVsJax:
         port = ref(segs, min_x, max_y, grid.scale, 128, 128, 2)
         assert_ties_only(port, jax_out, segs, min_x, max_y, grid.scale, 128, 128, 2)
 
+    def test_k9_lattice_at_k3(self):
+        """K9 rounds its sample offsets from float64, ``f32((i + 0.5)/k -
+        0.5)``; the port and the other JAX routes compute them in float32
+        (``sample_offsets``). At k = 3 the first differs by an ulp:
+        -0.33333334 against -0.33333331. A rectangle whose left edge lies on
+        K9's value (its edges are exact lines: the midpoint control points
+        round to no curvature), on a 128 x 128 grid at ``min_x = 0`` and scale 1, puts
+        column 0's first sub-column on the edge for K9 (outside) and just
+        right of it for the port (inside). The oracle at ``sample_offsets``
+        sides with the port on every pixel; at K9's lattice it gives K9's
+        result. So the pixels that differ are a divergence inside the
+        reference, not a port fault."""
+        import jax.numpy as jnp
+
+        from fontrx.kernels.coverage_pallas import coverage_pallas_batch
+
+        k9_offsets = np.array([(i + 0.5) / 3 - 0.5 for i in range(3)]).astype(f32)
+        port_offsets = coverage_ref.sample_offsets(3)[:3, 0]
+        assert k9_offsets[0] != port_offsets[0] and k9_offsets[0] < port_offsets[0]
+        x0 = k9_offsets[0]
+        corners = [(x0, 10.25), (60.0, 10.25), (60.0, 100.25), (x0, 100.25)]
+        segs = np.zeros((1, 4, 3, 2), f32)
+        for i in range(4):
+            p0, p2 = np.array(corners[i], f32), np.array(corners[(i + 1) % 4], f32)
+            segs[0, i] = [p0, (p0 + p2) / 2, p2]
+        min_x, max_y, scale = np.zeros(1, np.int32), np.full(1, 127, np.int32), f32(1.0)
+
+        port = ref(segs, min_x, max_y, scale, 128, 128, 3)[0]
+        k9 = np.asarray(coverage_pallas_batch(
+            jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y), jnp.float32(scale),
+            height=128, width=128, samples=3, interpret=True))[0]
+        count, _ = oracle_counts(segs[0], 0, 127, scale, 128, 128, 3)
+        np.testing.assert_array_equal(port, count.astype(f32) * f32(1 / 9))
+
+        k9_count = np.zeros((128, 128), np.int32)
+        for oy in k9_offsets:
+            for ox in k9_offsets:
+                cx, cy = sub_coords(0, 127, scale, 128, 128, (ox, oy))
+                k9_count += oracle.winding_at(segs[0], cx, cy, contract=False) != 0
+        np.testing.assert_array_equal(k9, k9_count.astype(f32) * f32(1 / 9))
+
+        # column 0, the rows 27..117 that the rectangle's sub-rows reach:
+        # there K9 drops the first sub-column's samples
+        differ = port != k9
+        assert differ.sum() == 91 and not differ[:, 1:].any()
+        assert (port[differ] > k9[differ]).all()
+
     def test_engine_vs_jax_engine(self, font):
         """The slice's entry point: ``RasterEngine.coverage_batch`` then
         ``coverage_to_gray``, against the JAX package's."""

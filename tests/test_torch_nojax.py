@@ -25,6 +25,8 @@ MODULES = [
     "fontrx_torch.kernels.winding_ref",
     "fontrx_torch.kernels.coverage",
     "fontrx_torch.kernels.coverage_ref",
+    "fontrx_torch.kernels.sdf",
+    "fontrx_torch.kernels.sdf_ref",
     "fontrx_torch.kernels.grid",
     "fontrx_torch.kernels.oracle",
     "fontrx_torch.font",
@@ -69,7 +71,7 @@ def test_nvcc_flags_keep_float_rules():
         assert bad not in flags
 
 
-@pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh"])
+@pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh", "sdf.cu"])
 def test_source_uses_no_fast_intrinsics(source):
     src = (_build.CSRC_DIR / source).read_text()
     for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):
