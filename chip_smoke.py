@@ -1,5 +1,5 @@
-"""Drive fontrx_torch's glyph fill, tile coverage and SDF atlas paths once on
-one CUDA card, and check them.
+"""Drive fontrx_torch's glyph fill, tile coverage, SDF atlas and Loop-Blinn
+atlas paths once on one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -8,9 +8,9 @@ CUDA toolkit:
 
 It builds the CUDA kernels from ``fontrx_torch/csrc`` into ``build/`` (one
 ``nvcc`` per source, all started together), packs two atlases with the
-port's own front end, then drives the two paths through the entry points a
-user calls, each with the kernels' launch counts set to 0 just before it and
-read just after:
+port's own front end, then drives the paths through the entry points a user
+calls, each with the kernels' launch counts set to 0 just before it and read
+just after:
 
 - **winding fill**:
   1. the 94 printable ASCII glyphs of DejaVu Sans at 256 px on 256 x 256
@@ -25,11 +25,20 @@ read just after:
 - **SDF atlas** (BASELINE config 4): signed distance fields (8 px spread)
   of ascii256, cjk64 and cjk32 (the CJK batch on 32 x 32 grids) through
   ``RasterEngine.sdf_batch`` (the winding kernel for the sign, then the
-  distance kernel), then ``sdf_to_u8``.
+  distance kernel), then ``sdf_to_u8``;
+- **Loop-Blinn atlas** (BASELINE config 3): the 94 printable ASCII glyphs of
+  DejaVu Sans triangulated by ``fontrx_torch.geometry``, padded to one
+  triangle count, at 128 px on 128 x 128 tiles through
+  ``loopblinn.loopblinn_batch``, and 'g' at 128 px through
+  ``loopblinn.loopblinn_fill``.
 
 It then checks every result: each kernel against its plain PyTorch version
-on every pixel (the SDF as int32 bit patterns), the atlases against the
-NumPy oracle (``contract=False``; for the SDF, its sign) on sampled glyphs, and the quick start against the oracle's fill, and
+on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
+against the plain version on the CPU), the atlases against the NumPy oracle
+(``contract=False``; for the SDF, its sign) on sampled glyphs, the quick
+start against the oracle's fill, and the Loop-Blinn fill against the
+winding fill at tie-free sample offsets on the glyphs of the JAX package's
+own test (``tests/test_geometry.py``), and
 times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
 (what a caller waits for, host launch overhead included). Any failure raises
@@ -50,18 +59,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fontrx_torch.bound import bound_ms, sdf_work, solve_work
-from fontrx_torch.convert import grid_anchors, packed_to_device
+from fontrx_torch.bound import bound_ms, loopblinn_bytes, loopblinn_work, sdf_work, solve_work
+from fontrx_torch.convert import grid_anchors, packed_to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.entry import entry
 from fontrx_torch.font.font import Font
+from fontrx_torch.geometry import TriangulatedGlyph
 from fontrx_torch.io import qoi
 from fontrx_torch.kernels import (
-    _build, coverage, coverage_ref, oracle, sdf, sdf_ref, winding, winding_ref)
+    _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, sdf, sdf_ref, winding,
+    winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
-from fontrx_torch.pack.segments import pack_glyph
+from fontrx_torch.pack.segments import glyph_segments, pack_glyph
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEJAVU = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -79,6 +90,16 @@ SAMPLES = 2                  # k of the k x k coverage (the reference's MSAA wor
 # for 1000 CJK glyphs at 32/64px", beside the ASCII headline atlas
 SDF_ATLASES = (("ascii256", "ascii256", 256), ("cjk64", "cjk64", 64), ("cjk32", "cjk64", 32))
 SDF_ORACLE_STRIDE = 52
+# BASELINE config 3 (benchmarks/configs.py:138-197): the printable ASCII
+# glyphs of DejaVu Sans, triangulated, at 128 px on 128 x 128 tiles
+LB_CHARS = list(range(33, 127))
+LB_SIZE = 128
+# the JAX package's test of the mesh fill against the winding fill
+# (tests/test_geometry.py::test_fill_matches_winding): these glyphs at 64 px,
+# sampled at tie-free offsets
+LB_WINDING_CHARS = "AOBg8@&WQ%"
+LB_WINDING_SIZE = 64
+LB_WINDING_OFFSET = (1 / 3, 1 / 3)
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -189,6 +210,21 @@ def load_atlas(font_path, chars, size):
     return batch, grids, pack_s
 
 
+def load_meshes(font_path, chars, size):
+    """Triangulate ``chars`` and pad their meshes to one triangle count, as
+    ``benchmarks/configs.py:152-176`` does: float32 ``[B, M, 3, 4]`` and
+    int32 ``[B, M]``, the fixed ``size`` grids, the host time."""
+    t0 = time.perf_counter()
+    font = Font.open(font_path)
+    glyphs = [font.get_glyph(c)[0] for c in chars]
+    meshes = [TriangulatedGlyph.from_glyph(g) for g in glyphs]
+    tris, classes = loopblinn.pack_meshes(meshes)
+    pack_s = time.perf_counter() - t0
+    grids = [RasterGrid.fixed_tile((g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max),
+                                   size, font.info.units_per_em, size) for g in glyphs]
+    return tris, classes, grids, pack_s
+
+
 def main() -> None:
     dev = require_cuda()
     print("toolchain:", json.dumps(probe()))
@@ -204,7 +240,7 @@ def main() -> None:
     engine = RasterEngine(device=dev)
 
     # --- winding fill path, once, through the user-facing entry points ----
-    winding.launches = coverage.launches = sdf.launches = 0
+    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
     outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = winding.launches
@@ -233,7 +269,7 @@ def main() -> None:
           f"{coverage.launches} coverage")
 
     # --- tile coverage path, once ------------------------------------------
-    winding.launches = coverage.launches = sdf.launches = 0
+    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
     cov_outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = coverage.launches
@@ -255,7 +291,7 @@ def main() -> None:
         grids = [RasterGrid.fixed_tile(tuple(box), size, upem, size)
                  for box in np.asarray(batch.boxes)]
         sdf_atlases[name] = (batch, grids, size)
-    winding.launches = coverage.launches = sdf.launches = 0
+    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
     sdf_outputs = {}
     for name, (batch, grids, size) in sdf_atlases.items():
         before = sdf.launches
@@ -267,9 +303,29 @@ def main() -> None:
     print(f"SDF path: {sdf_launches} SDF kernel launches, {sdf_winding_launches} winding, "
           f"{coverage.launches} coverage")
 
+    # --- Loop-Blinn atlas path (BASELINE config 3), once ----------------------
+    lb_tris, lb_classes, lb_grids, pack_s["ascii128_meshes"] = load_meshes(
+        DEJAVU, LB_CHARS, LB_SIZE)
+    print(f"ascii128: triangles {list(lb_tris.shape)} "
+          f"({int((lb_classes != loopblinn_ref.CLASS_PAD).sum())} live), host "
+          f"triangulation and padding {pack_s['ascii128_meshes']:.3f} s")
+    lb_args = triangles_to_device(lb_tris, lb_classes, lb_grids, dev)
+    g_mesh = TriangulatedGlyph.from_glyph(font.get_glyph("g")[0])
+    g_grid = RasterGrid.for_glyph_box(pack_glyph(font.get_glyph("g")[0]).box, LB_SIZE,
+                                      font.info.units_per_em)
+    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
+    lb_out = loopblinn.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE)
+    torch.cuda.synchronize()
+    check(loopblinn.launches == 1, "the Loop-Blinn atlas did not launch the kernel once")
+    g_fill = loopblinn.loopblinn_fill(g_mesh, g_grid)
+    check(loopblinn.launches == 2, "loopblinn_fill did not launch the kernel")
+    lb_launches = loopblinn.launches
+    print(f"Loop-Blinn path: {lb_launches} Loop-Blinn kernel launches, "
+          f"{winding.launches} winding, {coverage.launches} coverage, {sdf.launches} SDF")
+
     # --- checks ------------------------------------------------------------
-    record = {"winding": {}, "coverage": {}, "sdf": {}}
-    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0}
+    record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}}
+    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0}
     for name, (batch, grids, size) in atlases.items():
         args = packed_to_device(batch, grids, dev)
         b = len(grids)
@@ -388,6 +444,67 @@ def main() -> None:
               f"per wrapper call (winding + distance); bound {b_ms:.4f} ms ({bound_by}; "
               f"{ops} FP32 ops); plain version {plain_ms:.3f} ms")
 
+    b = len(lb_grids)
+    lb_ref = loopblinn_ref.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE)
+    check(lb_out.shape == lb_ref.shape == (b, LB_SIZE, LB_SIZE) and lb_out.dtype == torch.bool,
+          "Loop-Blinn atlas shape")
+    diff = int((lb_out != lb_ref).sum())
+    max_err["loopblinn"] = int((lb_out.int() - lb_ref.int()).abs().max())
+    check(diff == 0, f"ascii128: {diff} Loop-Blinn pixels differ from loopblinn_ref")
+    t0 = time.perf_counter()
+    lb_cpu = loopblinn_ref.loopblinn_batch(
+        *triangles_to_device(lb_tris, lb_classes, lb_grids, "cpu"),
+        height=LB_SIZE, width=LB_SIZE)
+    cpu_s = time.perf_counter() - t0
+    diff = int((lb_out.cpu() != lb_cpu).sum())
+    check(diff == 0, f"ascii128: {diff} Loop-Blinn pixels differ from loopblinn_ref on the CPU")
+    g_cpu = loopblinn.loopblinn_fill(g_mesh, g_grid, device="cpu")
+    check(g_fill.shape == (g_grid.height, g_grid.width) and np.array_equal(g_fill, g_cpu),
+          "loopblinn_fill('g') differs from the plain version")
+    mism = 0
+    for ch in LB_WINDING_CHARS:
+        glyph = font.get_glyph(ch)[0]
+        cgrid = RasterGrid.for_glyph_box(pack_glyph(glyph).box, LB_WINDING_SIZE,
+                                         font.info.units_per_em)
+        mesh = TriangulatedGlyph.from_glyph(glyph)
+        margs = triangles_to_device(*loopblinn.pack_meshes([mesh]), [cgrid], dev)
+        fill = loopblinn.loopblinn_batch(*margs, height=cgrid.height, width=cgrid.width,
+                                         sample_offset=LB_WINDING_OFFSET)
+        seg = torch.from_numpy(glyph_segments(glyph))[None].to(dev)
+        w = winding.winding_batch(seg, *margs[2:], height=cgrid.height, width=cgrid.width,
+                                  sample_offset=LB_WINDING_OFFSET)
+        mism += int((fill != (w != 0)).sum())
+    check(mism == 0, f"{mism} Loop-Blinn pixels differ from the winding fill at tie-free offsets")
+    print(f"ascii128 Loop-Blinn: 0 of {lb_out.numel()} pixels differ from loopblinn_ref on "
+          f"the card, 0 from it on the CPU (took {cpu_s:.2f} s); 'g' fill {g_grid.height}x"
+          f"{g_grid.width} equals the plain version; {LB_WINDING_CHARS!r} @"
+          f"{LB_WINDING_SIZE} at offset (1/3, 1/3) equal the winding fill; "
+          f"covered {int(lb_out.sum())}")
+
+    def lb_kernel():
+        return loopblinn.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE)
+
+    nbytes = loopblinn_bytes(lb_classes, LB_SIZE, LB_SIZE)
+    ops, pairs = loopblinn_work(*lb_args, height=LB_SIZE, width=LB_SIZE)
+    b_ms, bound_by = bound_ms(nbytes, ops)
+    kernel_ms = graph_ms(lb_kernel)
+    call_ms = cuda_ms(lb_kernel, inner=10)
+    # the same launch with no triangles: the blocks, the anchors and the output
+    no_tris = (lb_args[0][:, :0].contiguous(), lb_args[1][:, :0].contiguous(), *lb_args[2:])
+    empty_ms = graph_ms(
+        lambda: loopblinn.loopblinn_batch(*no_tris, height=LB_SIZE, width=LB_SIZE))
+    plain_ms = cuda_ms(
+        lambda: loopblinn_ref.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE),
+        inner=1, reps=5, warmup=1)
+    record["loopblinn"]["ascii128"] = dict(
+        ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms, no_triangles_ms=empty_ms,
+        bound_ms=b_ms, bound_by=bound_by, bound_bytes=nbytes, bound_ops=ops,
+        inside_pairs=pairs, plain_cpu_s=cpu_s)
+    print(f"ascii128 loopblinn: kernel {kernel_ms:.4f} ms on the device "
+          f"({b / kernel_ms * 1e3:.0f} glyphs/s; {empty_ms:.4f} ms with no triangles), "
+          f"{call_ms:.4f} ms per wrapper call; bound {b_ms:.5f} ms ({bound_by}; {nbytes} B, "
+          f"{ops} FP32 ops, {pairs} inside pairs); plain version {plain_ms:.3f} ms")
+
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
     check(decoded.shape == (grid.height, grid.width, 3), "quick start QOI shape")
@@ -418,16 +535,16 @@ def main() -> None:
         capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    def entry_of(kname, replaces, launches, **extra):
-        main = record[kname]["ascii256"]
+    def entry_of(kname, replaces, launches, main_atlas="ascii256", **extra):
+        main = record[kname][main_atlas]
         return {
             "name": kname, "route": "cuda", "source": f"fontrx_torch/csrc/{kname}.cu",
             "replaces": replaces, **extra, "launches": launches,
             "max_abs_err": max_err[kname],
-            # ascii256 in the main keys, the other atlases beside them
+            # the main atlas in the main keys, the other atlases beside them
             **main, "library_ms": None,
             **{f"{atlas}_{key}": value for atlas, rec in record[kname].items()
-               if atlas != "ascii256" for key, value in rec.items()},
+               if atlas != main_atlas for key, value in rec.items()},
         }
 
     print(json.dumps({"kernels": [
@@ -438,6 +555,8 @@ def main() -> None:
         entry_of("sdf", "fontrx/kernels/sdf_pallas.py:180", sdf_launches,
                  also_replaces="fontrx/kernels/sdf_pallas.py:605",
                  spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches),
+        entry_of("loopblinn", "fontrx/kernels/loopblinn.py:314", lb_launches,
+                 main_atlas="ascii128"),
     ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

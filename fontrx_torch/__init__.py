@@ -3,13 +3,15 @@
 A port of ``fontrx`` (JAX/Pallas on a TPU) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper. It owns its host front end: NumPy copies of
 the parts of ``fontrx`` that its paths read (the TrueType ``glyf`` reader,
-segment packing, raster grids, the NumPy oracle, QOI), each held equal to
-its original by a test. It imports neither JAX nor anything of ``fontrx``.
+segment packing, raster grids, the NumPy oracle, QOI, the glyph
+triangulation), each held equal to its original by a test. It imports
+neither JAX nor anything of ``fontrx``.
 
 - ``device``              toolchain probe and ``require_cuda``
 - ``font``                the TrueType ``glyf`` front end (``Font``)
 - ``pack.segments``       glyph outlines -> padded segment arrays
 - ``io.qoi``              QOI encoder and decoder
+- ``geometry``            glyph outlines -> classified triangle meshes
 - ``kernels.grid``        ``RasterGrid``: the pixel -> em-space mapping
 - ``kernels.oracle``      the NumPy winding oracle
 - ``kernels.winding``     the CUDA winding kernel, and
@@ -18,6 +20,9 @@ its original by a test. It imports neither JAX nor anything of ``fontrx``.
   ``kernels.coverage_ref`` its plain PyTorch version
 - ``kernels.sdf``         the CUDA SDF kernel, and ``kernels.sdf_ref`` its
   plain PyTorch version
+- ``kernels.loopblinn``   the CUDA Loop-Blinn triangle kernel and
+  ``loopblinn_fill``, and ``kernels.loopblinn_ref`` its plain PyTorch
+  version
 - ``engine.raster``       ``RasterEngine``: batched winding maps, fills,
   coverage and SDF atlases
 - ``engine.atlas``        character-set packing and atlas rendering

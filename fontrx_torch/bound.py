@@ -37,6 +37,18 @@ farther off cannot change the clamped result, whatever a kernel culls
 (``sdf_pairs``). What depends only on the segment and a constant ``t``
 (``t = 0``, ``t = 1`` and the Newton start values) is counted once per
 segment, not per pair.
+
+The Loop-Blinn fill (``csrc/loopblinn.cu``) needs, per triangle that can
+draw (class 0, 1 or 2), its area, sign, ``area != 0`` test and reciprocal
+(``LB_TRIANGLE_SETUP``), and per (triangle, pixel) pair whose pixel is
+inside the triangle, as the plain version's own ``inside`` says, the
+barycentric weights, ``u``, ``v`` and the class test of a curve triangle
+(``LB_CURVE_PAIR``); a solid triangle's pair needs none of them. The edge
+tests that find the inside pairs are not counted: how many of them a
+rasterizer runs depends on how it walks the pixels, so the count does not
+depend on any tiling (``loopblinn_work``). Its bytes are a triangle's 12
+floats and class where it can draw, only the class of a padding row, the
+anchors and one byte per pixel of output (``loopblinn_bytes``).
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fontrx_torch.kernels import winding_ref
+from fontrx_torch.kernels import loopblinn_ref, winding_ref
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -189,4 +201,49 @@ def sdf_work(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
     b = counts.shape[0]
     ops = (pairs * SDF_PAIR_OPS + segs * SDF_SEGMENT_TERMS
            + b * height * width * SDF_PIXEL + b * (height + width) * SDF_LINE)
+    return ops, pairs
+
+
+# Loop-Blinn, per triangle that can draw: area = (bx - ax)*(cy - ay) -
+# (by - ay)*(cx - ax) (7), its sign (1), area != 0 (1), 1/area (1)
+LB_TRIANGLE_SETUP = 10
+# per inside pair of a curve triangle: la, lb (2), lc (2), u and v (5 each),
+# q = (1 + u) - v (2), f = q*q (1), 4u (1), the class compare (1)
+LB_CURVE_PAIR = 19
+# a triangle's 3 corners x (x, y, u, v) in float32 and its int32 class; a
+# padding row's class alone; a glyph's int32 min_x and max_y
+LB_CLASS_BYTES = 4
+LB_TRIANGLE_BYTES = 3 * 4 * 4 + LB_CLASS_BYTES
+LB_ANCHOR_BYTES = 2 * 4
+
+
+def loopblinn_bytes(classes, height, width):
+    """Bytes the Loop-Blinn fill must move: per triangle that can draw
+    (class 0, 1 or 2) its 12 float32 coordinates and its int32 class
+    (``LB_TRIANGLE_BYTES``), per padding row only its class, per glyph its
+    two int32 anchors, and one byte per output pixel."""
+    classes = torch.as_tensor(classes)
+    live = int(((classes >= loopblinn_ref.CLASS_CONCAVE)
+                & (classes <= loopblinn_ref.CLASS_SOLID)).sum())
+    b = classes.shape[0]
+    return (live * LB_TRIANGLE_BYTES + (classes.numel() - live) * LB_CLASS_BYTES
+            + b * LB_ANCHOR_BYTES + b * height * width)
+
+
+def loopblinn_work(tris, classes, min_x, max_y, scale, *, height, width,
+                   sample_offset=(0.0, 0.0)):
+    """FP32 operations of the Loop-Blinn fill on these inputs, and the
+    (triangle, pixel) pairs whose pixel is inside the triangle:
+    ``(ops, inside_pairs)``. Tensors; the count runs on their device, with
+    the plain version's ``inside``."""
+    classes = torch.as_tensor(classes)
+    live = (classes >= loopblinn_ref.CLASS_CONCAVE) & (classes <= loopblinn_ref.CLASS_SOLID)
+    curve = live & (classes <= loopblinn_ref.CLASS_CONVEX)
+    pairs = curve_pairs = 0
+    for (bi, mi, _, _), *_ in loopblinn_ref.inside_pairs(
+            tris, min_x, max_y, scale, height=height, width=width,
+            sample_offset=sample_offset):
+        pairs += len(bi)
+        curve_pairs += int(curve[bi, mi].sum())
+    ops = int(live.sum()) * LB_TRIANGLE_SETUP + curve_pairs * LB_CURVE_PAIR
     return ops, pairs

@@ -42,3 +42,17 @@ def packed_to_device(batch: PackedBatch, grids: Sequence[RasterGrid], device):
     """A ``PackedBatch`` and its per-glyph grids as device tensors."""
     min_x, max_y, scale = grid_anchors(grids)
     return to_device(batch.segments, min_x, max_y, scale, device)
+
+
+def triangles_to_device(tris, classes, grids: Sequence[RasterGrid], device):
+    """Triangle meshes (float32 ``[B, M, 3, 4]``, class int32 ``[B, M]``) and
+    their per-glyph grids as ``(tris, classes, min_x, max_y, scale)`` on
+    ``device``: the inputs of ``kernels.loopblinn.loopblinn_batch``."""
+    min_x, max_y, scale = grid_anchors(grids)
+    return (
+        _tensor(tris, np.float32, torch.float32, device),
+        _tensor(classes, np.int32, torch.int32, device),
+        _tensor(min_x, np.int32, torch.int32, device),
+        _tensor(max_y, np.int32, torch.int32, device),
+        float(np.float32(scale)),
+    )

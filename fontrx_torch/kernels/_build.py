@@ -55,6 +55,14 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
     ),
+    "loopblinn": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p,                    # tris, classes
+         ctypes.c_void_p, ctypes.c_void_p,                    # min_x, max_y
+         ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
+         ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

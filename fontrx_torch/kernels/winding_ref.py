@@ -11,9 +11,9 @@ Three rules keep it exact on both devices:
 - every divisor is a tensor on the data's device. PyTorch's CUDA division
   by a CPU scalar multiplies by the reciprocal, which is not correctly
   rounded;
-- the square root is ``sqrt_rn``. ``torch.sqrt`` on the CPU may go through
-  a vector math library that misses the correctly rounded float32 result
-  by an ulp;
+- the square root is ``sqrt_rn``. ``torch.sqrt`` on the CPU is not
+  correctly rounded: it misses by an ulp on about 0.7% of float32 inputs,
+  and in some processes by ten ulps and more on a share of them;
 - segments broadcast against ``cy [.., H, 1]`` and ``cx [.., 1, W]``, so the
   root solve runs per (segment, row) and only the ``xx < cx`` test runs per
   pixel, as in the oracle.
@@ -21,6 +21,7 @@ Three rules keep it exact on both devices:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # bytes of live per-pixel temporaries per (glyph, segment, pixel) element of
@@ -34,11 +35,18 @@ _CHUNK_BUDGET = 1 << 30
 def sqrt_rn(x):
     """Correctly rounded float32 square root of ``x >= 0``.
 
-    ``torch.sqrt`` gives a value within an ulp; one exact float64 test
-    against each neighbouring float32 midpoint rounds it to nearest. A
-    midpoint has 25 significant bits, so its square is exact in float64,
-    and no float32 input lies on a midpoint's square, so there is no tie.
+    On the CPU it is NumPy's, which rounds to nearest as IEEE 754 asks.
+    ``torch.sqrt`` there is not: besides its one-ulp misses, a run of it
+    can return values up to 3.2e-4 off (more than ten ulps) on thousands of
+    elements, in some processes and not in others, so no correction of its
+    result can be trusted. On CUDA ``torch.sqrt`` gives a value within an
+    ulp; one exact float64 test against each neighbouring float32 midpoint
+    rounds it to nearest. A midpoint has 25 significant bits, so its square
+    is exact in float64, and no float32 input lies on a midpoint's square,
+    so there is no tie.
     """
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
     s = torch.sqrt(x)
     up = torch.nextafter(s, torch.full_like(s, float("inf")))
     down = torch.nextafter(s, torch.zeros_like(s))

@@ -27,7 +27,7 @@ from fontrx_torch.convert import grid_anchors, packed_to_device, to_device
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.font.font import Font
-from fontrx_torch.kernels import winding
+from fontrx_torch.kernels import winding, winding_ref
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import PackedBatch, pack_glyph, pack_glyphs
 
@@ -73,12 +73,33 @@ def same_grids(grids, jax_grids):
     return [dataclasses.astuple(g) for g in grids] == [dataclasses.astuple(g) for g in jax_grids]
 
 
+def differing_pixels(out, want, segments, xs, ys, limit=4):
+    """Each differing pixel with its sample point and the segments that
+    cross its row right of it, each with its contribution recomputed alone
+    by the plain version and by the oracle, as exact hex floats: enough to
+    replay the pixel."""
+    lines = [f"torch threads {torch.get_num_threads()}"]
+    seg = np.asarray(segments, np.float32)
+    for r, c in np.argwhere(out != want)[:limit]:
+        cx, cy = np.float32(xs[c]), np.float32(ys[r])
+        port = winding_ref.winding_contrib(torch.from_numpy(seg), torch.tensor(cx),
+                                           torch.tensor(cy)).numpy()
+        ref = [int(oracle.winding_at(s[None], cx, cy, contract=False)) for s in seg]
+        crossing = [(k, [float(v).hex() for v in seg[k].ravel()], int(port[k]), ref[k])
+                    for k in range(len(seg)) if port[k] or ref[k]]
+        lines.append(f"pixel ({r}, {c}) at ({float(cx).hex()}, {float(cy).hex()}): "
+                     f"{out[r, c]} against the oracle's {want[r, c]}; segments "
+                     f"(index, p0 p1 p2, plain alone, oracle alone): {crossing}")
+    return "\n".join(lines)
+
+
 def assert_oracle_exact(out, segments, grids):
     for i, g in enumerate(grids):
         xs, ys = g.sample_coords()
-        np.testing.assert_array_equal(
-            out[i], oracle.winding_at(segments[i], xs[None, :], ys[:, None], contract=False),
-            err_msg=f"glyph {i}")
+        want = oracle.winding_at(segments[i], xs[None, :], ys[:, None], contract=False)
+        if not np.array_equal(out[i], want):
+            pytest.fail(f"glyph {i}: {int((out[i] != want).sum())} pixels differ from the "
+                        f"oracle\n" + differing_pixels(out[i], want, segments[i], xs, ys))
 
 
 def assert_ties_only(port, other, segments, grids):
@@ -103,6 +124,18 @@ class TestRasterEngine:
         assert out.dtype == torch.int32 and tuple(out.shape) == (len(glyphs), TILE, TILE)
         assert_oracle_exact(out.numpy(), batch.segments, grids)
         assert_ties_only(out.numpy(), np.asarray(jout), batch.segments, grids)
+
+    def test_winding_packed_with_an_inexact_torch_sqrt(self, engine, font, glyphs,
+                                                       monkeypatch):
+        """The plain version does not lean on ``torch.sqrt`` on the CPU: in
+        some processes it returned values up to 3.2e-4 off on thousands of
+        elements, enough to flip pixels against the oracle. A ``torch.sqrt``
+        2^-12 off changes no pixel of this batch."""
+        exact = torch.sqrt
+        monkeypatch.setattr(torch, "sqrt", lambda x: exact(x) * (1 + 2.0**-12))
+        batch = pack_glyphs(glyphs)
+        out, grids = engine.winding_packed(batch, SIZE, font.info.units_per_em, TILE)
+        assert_oracle_exact(out.numpy(), batch.segments, grids)
 
     def test_winding_glyph(self, engine, font):
         g, _ = font.get_glyph("R")

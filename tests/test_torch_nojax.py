@@ -27,6 +27,8 @@ MODULES = [
     "fontrx_torch.kernels.coverage_ref",
     "fontrx_torch.kernels.sdf",
     "fontrx_torch.kernels.sdf_ref",
+    "fontrx_torch.kernels.loopblinn",
+    "fontrx_torch.kernels.loopblinn_ref",
     "fontrx_torch.kernels.grid",
     "fontrx_torch.kernels.oracle",
     "fontrx_torch.font",
@@ -35,6 +37,9 @@ MODULES = [
     "fontrx_torch.font.charmap",
     "fontrx_torch.font.glyph",
     "fontrx_torch.font.font",
+    "fontrx_torch.geometry",
+    "fontrx_torch.geometry.triangulate",
+    "fontrx_torch.geometry.triangulated_glyph",
     "fontrx_torch.pack",
     "fontrx_torch.pack.segments",
     "fontrx_torch.io",
@@ -71,7 +76,8 @@ def test_nvcc_flags_keep_float_rules():
         assert bad not in flags
 
 
-@pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh", "sdf.cu"])
+@pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh", "sdf.cu",
+                                    "loopblinn.cu"])
 def test_source_uses_no_fast_intrinsics(source):
     src = (_build.CSRC_DIR / source).read_text()
     for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):

@@ -138,6 +138,14 @@ class TestRefVsOracle:
         np.testing.assert_array_equal(
             winding_ref.sqrt_rn(torch.from_numpy(x)).numpy(), np.sqrt(x))
 
+    def test_sqrt_rn_does_not_use_torch_sqrt_on_the_cpu(self, monkeypatch):
+        # torch.sqrt on the CPU is not correctly rounded, and some processes
+        # saw it 3.2e-4 off: sqrt_rn must not depend on it there
+        monkeypatch.setattr(torch, "sqrt", lambda x: x * 0)
+        x = np.random.default_rng(0).random(1 << 16).astype(np.float32) * 2e5
+        np.testing.assert_array_equal(
+            winding_ref.sqrt_rn(torch.from_numpy(x)).numpy(), np.sqrt(x))
+
     def test_chunk_budget_bounds_peak_memory(self):
         # 94 glyphs at 256 x 256: one chunk's temporaries stay near 1 GiB
         step = winding_ref.seg_chunk(94, 256, 256)
