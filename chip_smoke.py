@@ -1,5 +1,5 @@
-"""Drive fontrx_torch's glyph fill, tile coverage, SDF atlas and Loop-Blinn
-atlas paths once on one CUDA card, and check them.
+"""Drive fontrx_torch's glyph fill, tile coverage, SDF atlas, Loop-Blinn
+atlas and direct page paths once on one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -30,15 +30,25 @@ just after:
   DejaVu Sans triangulated by ``fontrx_torch.geometry``, padded to one
   triangle count, at 128 px on 128 x 128 tiles through
   ``loopblinn.loopblinn_batch``, and 'g' at 128 px through
-  ``loopblinn.loopblinn_fill``.
+  ``loopblinn.loopblinn_fill``;
+- **direct page** (BASELINE config 5's frame): twenty lines of text laid out
+  by ``fontrx_torch.scene.layout`` on a 1920 x 1080 page, its first frame and
+  config 5's 30 zoom/pan events (``benchmarks/configs.py:287-295``, applied
+  with ``ViewTransform.zoomed``/``dragged``), a 256-row band and the debug
+  gray, each through ``PageRenderer.render_direct``; then the stress page
+  (``benchmarks/stress.py:93-124``): a 10k-character text on a 3840 x 2160
+  page zoomed out by 8 steps, and five frames zooming on from there.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
 against the plain version on the CPU), the atlases against the NumPy oracle
 (``contract=False``; for the SDF, its sign) on sampled glyphs, the quick
-start against the oracle's fill, and the Loop-Blinn fill against the
+start against the oracle's fill, the Loop-Blinn fill against the
 winding fill at tie-free sample offsets on the glyphs of the JAX package's
-own test (``tests/test_geometry.py``), and
+own test (``tests/test_geometry.py``), and the pages against the plain
+version (every frame, whole; config 5's band and gray; a 128-row band of the
+4K page), the winding kernel at batch 1 (config 5's first frame, whose
+transform is exact) and the oracle (every 64th row of that frame), and
 times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
 (what a caller waits for, host launch overhead included). Any failure raises
@@ -59,7 +69,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fontrx_torch.bound import bound_ms, loopblinn_bytes, loopblinn_work, sdf_work, solve_work
+from fontrx_torch.bound import (
+    bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_work, sdf_work, solve_work)
 from fontrx_torch.convert import grid_anchors, packed_to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
@@ -69,10 +80,13 @@ from fontrx_torch.font.font import Font
 from fontrx_torch.geometry import TriangulatedGlyph
 from fontrx_torch.io import qoi
 from fontrx_torch.kernels import (
-    _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, sdf, sdf_ref, winding,
-    winding_ref)
+    _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, page, page_ref, sdf,
+    sdf_ref, winding, winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import glyph_segments, pack_glyph
+from fontrx_torch.scene.layout import layout_text
+from fontrx_torch.scene.page import PageRenderer
+from fontrx_torch.scene.transform import ViewTransform
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEJAVU = ROOT / "fontrx_torch" / "data" / "DejaVuSans.ttf"
@@ -100,6 +114,28 @@ LB_SIZE = 128
 LB_WINDING_CHARS = "AOBg8@&WQ%"
 LB_WINDING_SIZE = 64
 LB_WINDING_OFFSET = (1 / 3, 1 / 3)
+# BASELINE config 5 (benchmarks/configs.py:276-295): twenty lines on a
+# 1920 x 1080 page, then 30 zoom/pan events; and the stress page
+# (benchmarks/stress.py:93-124): the line below repeated to 10k characters
+# on a 3840 x 2160 page, zoomed out by 8 steps, then five frames zooming in
+CONFIG5_TEXT = "\n".join(
+    "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(20))
+CONFIG5_SIZE = (1920, 1080)
+STRESS_LINE = "The quick brown fox jumps over the lazy dog. 0123456789 "
+STRESS_TEXT = "\n".join(STRESS_LINE for _ in range(10000 // len(STRESS_LINE)))
+STRESS_SIZE = (3840, 2160)
+PAGE_BAND = (400, 256)        # config 5's band: rows [400, 656)
+STRESS_REF_BAND = (1016, 128)  # the 4K page's rows held to the plain version
+PAGE_ORACLE_STRIDE = 64
+
+KERNELS = (winding, coverage, sdf, loopblinn, page)
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for module in KERNELS:
+        module.launches = 0
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -225,6 +261,50 @@ def load_meshes(font_path, chars, size):
     return tris, classes, grids, pack_s
 
 
+def config5_views(upem):
+    """Config 5's first view and its 30 zoom/pan events, one view each
+    (benchmarks/configs.py:287-295)."""
+    view = ViewTransform.init(upem, *CONFIG5_SIZE)
+    views = [view]
+    for i in range(30):
+        if i % 3 == 0:
+            view = view.zoomed(0.5 if i % 2 else -0.5, (0.1, 0.1))
+        else:
+            view = view.dragged(0.01, 0.005)
+        views.append(view)
+    return views
+
+
+def stress_views(upem):
+    """The stress page's first view, zoomed out by 8 steps, and its five
+    frames zooming on (benchmarks/stress.py:108-124)."""
+    view = ViewTransform.init(upem, *STRESS_SIZE).zoomed(-8.0, (0.0, 0.0))
+    return [view] + [view.zoomed(0.01 * (i + 1), (0.0, 0.0)) for i in range(5)]
+
+
+def load_page(font, text, size, view, dev):
+    """Lay ``text`` out, make its page renderer and compact its segment
+    stream (once per layout); returns the renderer and the host time."""
+    t0 = time.perf_counter()
+    renderer = PageRenderer(font, layout_text(font, text), *size, dev)
+    renderer.page_inputs(view)
+    torch.cuda.synchronize()
+    return renderer, time.perf_counter() - t0
+
+
+def winding_page(inputs, page_h, page_w):
+    """The page from the winding kernel at batch 1 on the page-space stream
+    (anchors 0 and ``page_h - 1``, scale 1): int32 ``[page_h, page_w]``. It
+    solves every (segment, row) pair, so it is the page where no root
+    strays."""
+    flat = page_ref.transform_segments(*inputs)[None].contiguous()
+    dev = flat.device
+    return winding.winding_batch(
+        flat, torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.full((1,), page_h - 1, dtype=torch.int32, device=dev), 1.0,
+        height=page_h, width=page_w)[0]
+
+
 def main() -> None:
     dev = require_cuda()
     print("toolchain:", json.dumps(probe()))
@@ -240,7 +320,7 @@ def main() -> None:
     engine = RasterEngine(device=dev)
 
     # --- winding fill path, once, through the user-facing entry points ----
-    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
+    reset_counts()
     outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = winding.launches
@@ -269,7 +349,7 @@ def main() -> None:
           f"{coverage.launches} coverage")
 
     # --- tile coverage path, once ------------------------------------------
-    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
+    reset_counts()
     cov_outputs = {}
     for name, (batch, grids, size) in atlases.items():
         before = coverage.launches
@@ -291,7 +371,7 @@ def main() -> None:
         grids = [RasterGrid.fixed_tile(tuple(box), size, upem, size)
                  for box in np.asarray(batch.boxes)]
         sdf_atlases[name] = (batch, grids, size)
-    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
+    reset_counts()
     sdf_outputs = {}
     for name, (batch, grids, size) in sdf_atlases.items():
         before = sdf.launches
@@ -313,7 +393,7 @@ def main() -> None:
     g_mesh = TriangulatedGlyph.from_glyph(font.get_glyph("g")[0])
     g_grid = RasterGrid.for_glyph_box(pack_glyph(font.get_glyph("g")[0]).box, LB_SIZE,
                                       font.info.units_per_em)
-    winding.launches = coverage.launches = sdf.launches = loopblinn.launches = 0
+    reset_counts()
     lb_out = loopblinn.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE)
     torch.cuda.synchronize()
     check(loopblinn.launches == 1, "the Loop-Blinn atlas did not launch the kernel once")
@@ -323,9 +403,30 @@ def main() -> None:
     print(f"Loop-Blinn path: {lb_launches} Loop-Blinn kernel launches, "
           f"{winding.launches} winding, {coverage.launches} coverage, {sdf.launches} SDF")
 
+    # --- direct page path (BASELINE config 5's frame, the 4K stress page) ---
+    upem = font.info.units_per_em
+    views5, views4k = config5_views(upem), stress_views(upem)
+    page5, pack_s["config5_layout"] = load_page(font, CONFIG5_TEXT, CONFIG5_SIZE, views5[0],
+                                                dev)
+    page4k, pack_s["page4k_layout"] = load_page(font, STRESS_TEXT, STRESS_SIZE, views4k[0], dev)
+    reset_counts()
+    frames5 = [page5.render_direct(view) for view in views5]
+    band5 = page5.render_direct(views5[0], band=PAGE_BAND)
+    gray5 = page5.render_direct(views5[0], debug=True)
+    frames4k = [page4k.render_direct(view) for view in views4k]
+    torch.cuda.synchronize()
+    page_launches = page.launches
+    check(page_launches == len(views5) + 2 + len(views4k),
+          f"render_direct launched the page kernel {page_launches} times")
+    check(winding.launches == 0, "render_direct launched the winding kernel")
+    print(f"page path: {page_launches} page kernel launches ({len(views5)} config5 frames, "
+          f"a band and the gray, {len(views4k)} 4K frames), {winding.launches} winding; "
+          f"host layout and compaction: config5 {pack_s['config5_layout']:.3f} s, "
+          f"page4k {pack_s['page4k_layout']:.3f} s")
+
     # --- checks ------------------------------------------------------------
-    record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}}
-    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0}
+    record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}, "page": {}}
+    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0, "page": 0}
     for name, (batch, grids, size) in atlases.items():
         args = packed_to_device(batch, grids, dev)
         b = len(grids)
@@ -505,6 +606,127 @@ def main() -> None:
           f"{call_ms:.4f} ms per wrapper call; bound {b_ms:.5f} ms ({bound_by}; {nbytes} B, "
           f"{ops} FP32 ops, {pairs} inside pairs); plain version {plain_ms:.3f} ms")
 
+    for name, renderer, views, frames in (("config5", page5, views5, frames5),
+                                          ("page4k", page4k, views4k, frames4k)):
+        h, w = renderer.height, renderer.width
+        per_frame = []
+        ref_s = 0.0
+        for k, (view, frame) in enumerate(zip(views, frames)):
+            check(frame.shape == (h, w) and frame.dtype == torch.uint8, f"{name} frame shape")
+            inputs = renderer.page_inputs(view)
+            t0 = time.perf_counter()
+            want = page_ref.direct_page(*inputs, page_h=h, page_w=w, mode="winding")
+            torch.cuda.synchronize()
+            ref_s += time.perf_counter() - t0
+            diff = int((frame != page_ref.finish(want, "fill")).sum())
+            check(diff == 0, f"{name} frame {k}: {diff} pixels differ from page_ref")
+            got = page.direct_page(*inputs, page_h=h, page_w=w, mode="winding")
+            max_err["page"] = max(max_err["page"], int((got - want).abs().max()))
+            check(torch.equal(got, want), f"{name} frame {k}: the int32 page differs from "
+                  "page_ref's")
+            # the winding of every pair: the same page where no root strays
+            every_pair = int((got != winding_page(inputs, h, w)).sum())
+            if name == "config5" and k == 0:  # ViewTransform.init: the transform is exact
+                check(every_pair == 0, f"config5 first frame: {every_pair} pixels differ from "
+                      "the winding kernel at batch 1")
+            q = page_ref.transform_segments(*inputs).reshape(-1, 6)
+            ops, needed, crossings = page_work(*inputs, page_h=h, page_w=w)
+            nbytes = page_bytes(len(inputs[0]), len(inputs[2]), h, w, "fill")
+            b_ms, bound_by = bound_ms(nbytes, ops)
+            per_frame.append(dict(
+                ms=graph_ms(lambda: page.direct_page(*inputs, page_h=h, page_w=w), calls=10),
+                bound_ms=b_ms, bound_by=bound_by, bound_ops=ops,
+                visited_pairs=int(page_ref.page_rows(q, h - 1, h, w).sum()),
+                needed_pairs=needed, crossings=crossings, inked=int((frame != 0).sum()),
+                every_pair_differs=every_pair))
+        print(f"{name}: {len(frames)} frames {h}x{w}: 0 pixels differ from page_ref (int32 and "
+              f"fill; page_ref took {ref_s:.2f} s in all)"
+              + ("; the first frame equals the winding kernel at batch 1" if name == "config5"
+                 else "") + "; per frame:")
+        for k, f in enumerate(per_frame):
+            print(f"  {name} frame {k}: {f['ms']:.4f} ms, bound {f['bound_ms']:.5f} ms "
+                  f"({f['bound_by']}), visited {f['visited_pairs']}, crossings "
+                  f"{f['crossings']}, inked {f['inked']}, every pair differs "
+                  f"{f['every_pair_differs']}")
+
+        inputs = renderer.page_inputs(views[0])
+        if name == "config5":
+            ref = page_ref.direct_page(*inputs, page_h=h, page_w=w, mode="winding")
+            y0, rows = PAGE_BAND
+            check(torch.equal(band5, frames[0][y0 : y0 + rows]),
+                  "config5 band differs from the frame's rows")
+            check(torch.equal(band5, page_ref.direct_page(*inputs, y0, page_h=h, page_w=w,
+                                                          out_h=rows)),
+                  "config5 band differs from page_ref's")
+            check(torch.equal(gray5, page_ref.finish(ref, "gray")),
+                  "config5 debug gray differs from page_ref's")
+            q = page_ref.transform_segments(*inputs).cpu().numpy()
+            rows_o = np.arange(0, h, PAGE_ORACLE_STRIDE)
+            xs = np.arange(w).astype(np.float32)[None, :]
+            t1 = time.perf_counter()
+            wo = np.concatenate([  # a row at a time: the oracle's chunks stay small
+                oracle.winding_at(q, xs, np.float32([[h - 1 - r]]), contract=False)
+                for r in rows_o])
+            oracle_s = time.perf_counter() - t1
+            mism = int((wo != ref[rows_o].cpu().numpy()).sum())
+            check(mism == 0, f"config5: {mism} pixels differ from the oracle")
+            print(f"config5: the band {PAGE_BAND} equals the frame's rows and page_ref's band; "
+                  f"the debug gray equals page_ref's; 0 of {len(rows_o) * w} pixels on every "
+                  f"{PAGE_ORACLE_STRIDE}th row of the first frame differ from the oracle (took "
+                  f"{oracle_s:.1f} s)")
+        else:
+            y0, rows = STRESS_REF_BAND
+            ref = page_ref.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows,
+                                       mode="winding")
+            got = page.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows, mode="winding")
+            check(torch.equal(got, ref), "page4k band differs from page_ref's")
+            print(f"page4k: the band [{y0}, {y0 + rows}) equals page_ref's")
+
+        first = per_frame[0]
+        call_ms = cuda_ms(lambda: renderer.render_direct(views[0]), inner=10)
+        flat = page_ref.transform_segments(*inputs)[None].contiguous()
+        anchors = (torch.zeros(1, dtype=torch.int32, device=dev),
+                   torch.full((1,), h - 1, dtype=torch.int32, device=dev))
+        winding_ms = graph_ms(
+            lambda: winding.winding_batch(flat, *anchors, 1.0, height=h, width=w), calls=5)
+        d2h_ms = cuda_ms(lambda: frames[0].cpu(), inner=1)
+        plain_ms = cuda_ms(lambda: page_ref.direct_page(*inputs, page_h=h, page_w=w), inner=1,
+                           reps=3, warmup=1)
+
+        def mean(key):
+            return statistics.fmean(f[key] for f in per_frame)
+
+        # the frames' mean in the main keys: what the traffic costs a frame
+        rec = dict(ms=mean("ms"), plain_ms=plain_ms, call_ms=call_ms,
+                   bound_ms=mean("bound_ms"), bound_by=first["bound_by"],
+                   frames=len(per_frame), bound_ops=mean("bound_ops"),
+                   bound_bytes=page_bytes(len(inputs[0]), len(inputs[2]), h, w, "fill"),
+                   segments=len(inputs[0]), instances=len(inputs[2]),
+                   visited_pairs=mean("visited_pairs"), needed_pairs=mean("needed_pairs"),
+                   all_pairs=len(inputs[0]) * h, crossings=mean("crossings"),
+                   max_ms=max(f["ms"] for f in per_frame),
+                   first_ms=first["ms"], first_bound_ms=first["bound_ms"],
+                   first_visited_pairs=first["visited_pairs"], first_crossings=first["crossings"],
+                   winding_cu_first_ms=winding_ms, frame_d2h_ms=d2h_ms,
+                   host_layout_s=pack_s[f"{name}_layout"], plain_all_frames_s=ref_s,
+                   inked_first=first["inked"], inked_min=min(f["inked"] for f in per_frame),
+                   inked_max=max(f["inked"] for f in per_frame),
+                   every_pair_differs_max=max(f["every_pair_differs"] for f in per_frame))
+        if name == "page4k":
+            y0, rows = STRESS_REF_BAND
+            rec["band_ms"] = graph_ms(
+                lambda: page.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows))
+        record["page"][name] = rec
+        print(f"{name} page: S {len(inputs[0])} segments, {len(inputs[2])} instances, "
+              f"{len(per_frame)} frames; mean per frame: kernel {rec['ms']:.4f} ms on the "
+              f"device (max {rec['max_ms']:.4f}), bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%} of the kernel's time), visited pairs "
+              f"{rec['visited_pairs']:.0f}, needed {rec['needed_pairs']:.0f}, crossings "
+              f"{rec['crossings']:.0f}; first frame: kernel {first['ms']:.4f} ms, bound "
+              f"{first['bound_ms']:.5f} ms, visited {first['visited_pairs']}, render_direct "
+              f"{call_ms:.4f} ms per call, winding.cu on the same page {winding_ms:.4f} ms, "
+              f"frame to host {d2h_ms:.4f} ms, plain version {plain_ms:.3f} ms")
+
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
     check(decoded.shape == (grid.height, grid.width, 3), "quick start QOI shape")
@@ -557,6 +779,8 @@ def main() -> None:
                  spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches),
         entry_of("loopblinn", "fontrx/kernels/loopblinn.py:314", lb_launches,
                  main_atlas="ascii128"),
+        entry_of("page", "fontrx/kernels/winding_page.py:267", page_launches,
+                 main_atlas="config5"),
     ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,8 +4,9 @@ A port of ``fontrx`` (JAX/Pallas on a TPU) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper. It owns its host front end: NumPy copies of
 the parts of ``fontrx`` that its paths read (the TrueType ``glyf`` reader,
 segment packing, raster grids, the NumPy oracle, QOI, the glyph
-triangulation), each held equal to its original by a test. It imports
-neither JAX nor anything of ``fontrx``.
+triangulation, the view transform and the plain text layout), each held
+equal to its original by a test. It imports neither JAX nor anything of
+``fontrx``.
 
 - ``device``              toolchain probe and ``require_cuda``
 - ``font``                the TrueType ``glyf`` front end (``Font``)
@@ -23,9 +24,15 @@ neither JAX nor anything of ``fontrx``.
 - ``kernels.loopblinn``   the CUDA Loop-Blinn triangle kernel and
   ``loopblinn_fill``, and ``kernels.loopblinn_ref`` its plain PyTorch
   version
+- ``kernels.page``        the CUDA page kernel, and ``kernels.page_ref``
+  its plain PyTorch version
 - ``engine.raster``       ``RasterEngine``: batched winding maps, fills,
   coverage and SDF atlases
 - ``engine.atlas``        character-set packing and atlas rendering
+- ``scene.transform``     the view transform (zoom, pan)
+- ``scene.layout``        text -> glyph instances (the plain path)
+- ``scene.page``          ``PageRenderer.render_direct``: a whole page in
+  one kernel launch
 - ``convert``             host batches and grids to tensors on a device
 - ``entry``               ``entry()``: the raster step and an example batch
 """

@@ -49,6 +49,19 @@ rasterizer runs depends on how it walks the pixels, so the count does not
 depend on any tiling (``loopblinn_work``). Its bytes are a triangle's 12
 floats and class where it can draw, only the class of a padding row, the
 anchors and one byte per pixel of output (``loopblinn_bytes``).
+
+The direct page render (``csrc/page.cu``) needs, per segment of the
+em-space stream, its transform to page pixels (a multiply-add per
+coordinate, counted as two operations) and its constants as above; per
+(segment, row) pair that it needs, the solve of its branch as above; one
+operation per crossing and one per pixel (``page_work``). A pair is needed
+when the page solves it (the reference's chunk cull, ``page_ref``) and its
+row's sample y lies in the segment's control-hull y-range, or the float
+program gives it a root in ``[0, 1)`` all the same: a nearly straight
+quadratic's rounded roots can stray off its hull, and they change the page. Its bytes are the
+em-space stream (24 B a segment and a 4 B owner), 8 B per instance offset
+and the output once: 4 B a pixel for the int32 winding, 1 B for the fill or
+gray (``page_bytes``).
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fontrx_torch.kernels import loopblinn_ref, winding_ref
+from fontrx_torch.kernels import loopblinn_ref, page_ref, winding_ref
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -247,3 +260,62 @@ def loopblinn_work(tris, classes, min_x, max_y, scale, *, height, width,
         curve_pairs += int(curve[bi, mi].sum())
     ops = int(live.sum()) * LB_TRIANGLE_SETUP + curve_pairs * LB_CURVE_PAIR
     return ops, pairs
+
+
+# per segment of the page stream: a multiply-add per coordinate
+PAGE_TRANSFORM = 2 * 6
+# bytes per segment of the em-space stream and its int32 owner, per
+# instance offset
+PAGE_SEGMENT_BYTES = 6 * 4 + 4
+PAGE_OFFSET_BYTES = 2 * 4
+
+# (segment, row) pairs of one chunk of the page count
+_PAGE_PAIR_CHUNK = 1 << 22
+
+
+def page_bytes(segments: int, instances: int, out_h: int, page_w: int, mode: str = "fill"):
+    """Bytes the direct page render must move: the em-space stream, the
+    instance offsets and the output, 4 B a pixel for ``mode="winding"``,
+    else 1 B."""
+    per_pixel = 4 if mode == "winding" else 1
+    return (segments * PAGE_SEGMENT_BYTES + instances * PAGE_OFFSET_BYTES
+            + out_h * page_w * per_pixel)
+
+
+def page_work(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0=0, *, page_h, page_w,
+              out_h=None):
+    """FP32 operations of the direct page render on these inputs, the
+    (segment, row) pairs it needs and its crossings: ``(ops, pairs,
+    crossings)``. A pair is needed where the page solves it
+    (``page_ref.solved_rows``) and its row lies in the segment's control-hull
+    y-range or gets a crossing. Tensors, as ``page_ref.direct_page`` takes
+    them; the count runs on their device."""
+    oh = page_h if out_h is None else out_h
+    top = page_h - 1 - band_y0
+    q = page_ref.transform_segments(flat_segments, seg_inst_idx, inst_offsets,
+                                    s_px).reshape(-1, 6)
+    cy = page_ref.row_coords(top, oh, q.device)
+    strips = page_ref.strip_table(q, top, oh, page_w)
+    row_strip = torch.arange(oh, device=q.device) // page_ref.STRIP_ROWS
+    p0y, p1y, p2y = q[:, 1], q[:, 3], q[:, 5]
+    quad = (p0y - 2 * p1y + p2y) != 0
+    lin = ~quad & (p2y != p0y)
+    n_quad = int(quad.sum())
+    ops = (PAGE_TRANSFORM + 9) * len(q) + 4 * n_quad + 2 * (len(q) - n_quad)
+    pairs = crossings = 0
+    step = max(1, _PAGE_PAIR_CHUNK // max(oh, 1))
+    for s0 in range(0, len(q), step):
+        qc = q[s0 : s0 + step]
+        roots, live = page_ref.row_roots(qc, cy)
+        solved = strips[s0 : s0 + step][:, row_strip]
+        roots = roots * solved
+        ys = qc[:, 1::2]
+        needed = solved & (((cy[None, :] >= ys.amin(dim=1)[:, None])
+                            & (cy[None, :] <= ys.amax(dim=1)[:, None])) | (roots > 0))
+        nq = needed & quad[s0 : s0 + step, None]
+        nl = needed & lin[s0 : s0 + step, None]
+        ops += (4 * int(nq.sum()) + 9 * int((live & nq).sum()) + 7 * int((roots * nq).sum())
+                + 4 * int(nl.sum()) + 4 * int((roots * nl).sum()))
+        pairs += int((nq | nl).sum())
+        crossings += int(roots.sum())
+    return ops + crossings + oh * page_w, pairs, crossings

@@ -63,6 +63,15 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
     ),
+    "page": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, owner, offsets
+         ctypes.c_int, ctypes.c_int, ctypes.c_float,          # S, N, s_px
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # top, out_h, W, mode
+         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
+         ctypes.c_void_p],                                    # stream
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from fontrx_torch.bound import (
-    FP32_OPS_PER_S, HBM_BYTES_PER_S, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms, sdf_pairs,
-    sdf_work, solve_work)
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, PAGE_TRANSFORM, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms,
+    page_bytes, page_work, sdf_pairs, sdf_work, solve_work)
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font.font import Font
+from fontrx_torch.kernels import page_ref
 from fontrx_torch.kernels.coverage_ref import sample_offsets
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.kernels.sdf_ref import sdf_batch as sdf_plain
@@ -112,6 +113,135 @@ def test_glyphs_match_the_scalar_program(k):
                              g.max_y, g.scale, size, offsets, k)
             want = [want[0] + w[0], want[1] + w[1]]
     assert got == tuple(want) and got[1] > 0
+
+
+def _page(segments, offsets, s_px=1.0):
+    seg = torch.from_numpy(np.asarray(segments, f32)).reshape(-1, 3, 2).contiguous()
+    return (seg, torch.zeros(len(seg), dtype=torch.int32), torch.tensor([offsets], dtype=torch.float32),
+            s_px)
+
+
+# y(t) spans 1002..1007 on the page: its hull misses every row of a 16-row page
+FAR = np.array([[[0, 1000], [2, 1010], [4, 1000]]], f32)
+
+
+def test_page_square_by_hand():
+    # the square moves to x 1..5, y 2..12 on a 16 x 8 page (rows y = 15..0);
+    # each upright edge's hull holds rows 2..12 and it crosses 10 of them;
+    # the flat edges and the far curve need no solve
+    ops, pairs, crossings = page_work(*_page(np.concatenate([SQUARE, FAR]), (1.0, 2.0)),
+                                      page_h=16, page_w=8)
+    assert (pairs, crossings) == (2 * 11, 2 * 10)
+    constants = (PAGE_TRANSFORM + 9) * 5 + 4 * 1 + 2 * 4
+    assert ops == constants + 4 * pairs + 4 * crossings + crossings + 16 * 8
+
+
+def test_page_segment_off_every_row_needs_no_solve():
+    ops, pairs, crossings = page_work(*_page(FAR, (0.0, 0.0)), page_h=16, page_w=8)
+    assert (pairs, crossings) == (0, 0)
+    assert ops == PAGE_TRANSFORM + 9 + 4 + 16 * 8
+    # a band counts its own rows only
+    ops, pairs, _ = page_work(*_page(SQUARE, (1.0, 2.0)), 4, page_h=16, page_w=8, out_h=4)
+    assert pairs == 2 * 4 and ops > 4 * 8  # rows y = 11..8 of each upright edge
+
+
+def test_page_bytes_by_hand():
+    assert page_bytes(5, 1, 16, 8, "winding") == 5 * 28 + 8 + 16 * 8 * 4
+    assert page_bytes(5, 1, 16, 8, "fill") == page_bytes(5, 1, 16, 8, "gray") == 5 * 28 + 8 + 128
+
+
+def _scalar_solved(q, top, rows, page_w):
+    """The pairs the page solves, one chunk at a time: per 128-row strip,
+    those of the chunks (16 segments below a padded width of 1024, else 32)
+    whose hull, widened by 1 px, meets the strip; a last chunk that is not
+    full holds the point (-1e7, -1e7)."""
+    pw = -(-page_w // 128) * 128
+    chunk, x_cull = (32, True) if pw >= 1024 else (16, False)
+    solved = np.zeros((len(q), rows), bool)
+    for c0 in range(0, len(q), chunk):
+        pts = q[c0 : c0 + chunk].reshape(-1, 2)
+        if len(pts) < 3 * chunk:
+            pts = np.concatenate([pts, np.full((1, 2), -1e7, f32)])
+        ymin, ymax, xmax = f32(pts[:, 1].min()), f32(pts[:, 1].max()), f32(pts[:, 0].max())
+        for r in range(rows):
+            y_hi = f32(top - r // 128 * 128)
+            solved[c0 : c0 + chunk, r] = (ymax + f32(1) >= y_hi - f32(127)
+                                          and ymin - f32(1) <= y_hi
+                                          and (not x_cull or xmax + f32(1) >= f32(0)))
+    return solved
+
+
+def _scalar_page_work(q, top, rows, page_w):
+    """The page's needed pairs one at a time: solved, and in the hull or
+    crossed."""
+    ops = pairs = crossings = 0
+    q = np.asarray(q, f32).reshape(-1, 6)
+    solved = _scalar_solved(q, top, rows, page_w)
+    for p, solved_rows in zip(q, solved):
+        p0y, p1y, p2y = f32(p[1]), f32(p[3]), f32(p[5])
+        a = p0y - f32(2) * p1y + p2y
+        ops += PAGE_TRANSFORM + 9 + (4 if a != 0 else 2)
+        for r in np.nonzero(solved_rows)[0]:
+            cy = f32(top - r)
+            roots, extra = 0, 0
+            if a != 0:
+                delta = cy * a + p1y * p1y - p0y * p2y
+                if delta >= 0:
+                    extra = 9
+                    sq = np.sqrt(delta)
+                    roots = sum(0 <= t < 1 for t in ((p0y - p1y + sq) / a, (p0y - p1y - sq) / a))
+                cost = 4 + extra + 7 * roots
+            elif p2y != p0y:
+                roots = int(0 <= (cy - p0y) / (p2y - p0y) < 1)
+                cost = 4 + 4 * roots
+            else:
+                continue
+            if min(p0y, p1y, p2y) <= cy <= max(p0y, p1y, p2y) or roots:
+                ops, pairs, crossings = ops + cost, pairs + 1, crossings + roots
+    return ops, pairs, crossings
+
+
+@pytest.mark.parametrize("zoom", [0.0, -0.5, 1.5])
+def test_page_matches_the_scalar_program(zoom):
+    from fontrx_torch.scene.layout import layout_text
+    from fontrx_torch.scene.page import PageRenderer
+    from fontrx_torch.scene.transform import ViewTransform
+
+    font = Font.open(FONT)
+    w, h = 96, 40
+    pr = PageRenderer(font, layout_text(font, "Ag"), w, h, "cpu")
+    inputs = pr.page_inputs(ViewTransform.init(2048, w, h).zoomed(zoom, (-0.2, 0.1)))
+    q = page_ref.transform_segments(*inputs).reshape(-1, 6).numpy()
+    with np.errstate(all="ignore"):
+        ops, pairs, crossings = _scalar_page_work(q, h - 1, h, w)
+    assert page_work(*inputs, page_h=h, page_w=w) == (ops + crossings + w * h, pairs, crossings)
+    assert crossings > 0
+    # the same crossings as the glyph path's count at these anchors
+    assert solve_work(q.reshape(1, -1, 3, 2), [len(q)], [h - 1], 1.0, height=h,
+                      row_offsets=[0.0])[1] == crossings
+
+
+def test_page_drops_strays_where_the_chunk_misses_the_strip():
+    # lines from y = 200 + 0.37 i down 20 px, their control points 2^-16 off
+    # the middle: one chunk, whose hull lies in the upper of two strips,
+    # with strays on rows of the lower one
+    near = np.array([[10, f32(200 + 0.37 * i), 12, f32(f32(200 + 0.37 * i) - 10)
+                      + f32((-1) ** i * 2.0**-16), 14, f32(f32(200 + 0.37 * i) - 20)]
+                     for i in range(16)], f32)
+    got = page_work(*_page(near, (0.0, 0.0)), page_h=256, page_w=8)
+    with np.errstate(all="ignore"):
+        ops, pairs, crossings = _scalar_page_work(near, 255, 256, 8)
+    assert got == (ops + crossings + 256 * 8, pairs, crossings)
+    roots, _ = page_ref.row_roots(torch.from_numpy(near), page_ref.row_coords(255, 256))
+    assert int(roots[:, 128:].sum()) > 0  # strays below, which the page drops
+    assert got[2] == int(roots[:, :128].sum())
+
+
+def test_page_counts_stray_crossings_of_a_near_line():
+    # a line from y = 200 to 100 with its control point 2^-16 off the middle
+    near = np.array([[10, 200, 12, f32(150) + f32(2.0**-16), 14, 100]], f32)
+    ops, pairs, crossings = page_work(*_page(near, (0.0, 0.0)), page_h=256, page_w=32)
+    assert pairs > 101 and crossings > 0  # rows 100..200 and the strays
 
 
 def test_bound_takes_the_larger_time():

@@ -18,6 +18,8 @@ from fontrx.io import qoi as ref_qoi
 from fontrx.kernels import oracle as ref_oracle
 from fontrx.kernels.grid import RasterGrid as RefGrid
 from fontrx.pack import segments as ref_segments
+from fontrx.scene import layout as ref_layout
+from fontrx.scene import transform as ref_transform
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font import ttf
 from fontrx_torch.font.font import Font
@@ -26,6 +28,7 @@ from fontrx_torch.io import qoi
 from fontrx_torch.kernels import oracle
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack import segments
+from fontrx_torch.scene import layout, transform
 from tests import ttf_builder as tb
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -312,3 +315,137 @@ class TestOracle:
                                       ref_oracle.render_fill(segs, grid))
         np.testing.assert_array_equal(oracle.render_gray(segs, grid),
                                       ref_oracle.render_gray(segs, grid))
+
+
+def view_stream(module, upem, w, h):
+    """BASELINE config 5's 30 zoom/pan events (benchmarks/configs.py:287-295)
+    and the stress page's zoom (benchmarks/stress.py:109-124), as views."""
+    v = module.ViewTransform.init(upem, w, h)
+    views = [v]
+    for i in range(30):
+        if i % 3 == 0:
+            v = v.zoomed(0.5 if i % 2 else -0.5, (0.1, 0.1))
+        else:
+            v = v.dragged(0.01, 0.005)
+        views.append(v)
+    v = module.ViewTransform.init(upem, 3840, 2160).zoomed(-8.0, (0.0, 0.0))
+    views += [v, *(v.zoomed(0.01 * (i + 1), (0.0, 0.0)) for i in range(5))]
+    return views + [v.with_aspect(w, h), v.zoomed(0, (0.3, 0.3))]
+
+
+class TestTransform:
+    def test_view_stream_equals_reference(self):
+        local_port = transform.Transform((1.5, 0.75), (-120.0, 33.25))
+        local_ref = ref_transform.Transform((1.5, 0.75), (-120.0, 33.25))
+        for port, ref in zip(view_stream(transform, 2048, 1920, 1080),
+                             view_stream(ref_transform, 2048, 1920, 1080), strict=True):
+            assert (port.scale, port.offset, port.aspect_ratio) == (
+                ref.scale, ref.offset, ref.aspect_ratio)
+            for x, y in ((0.0, 0.0), (1234.5, -2380.25), (-7.0, 1e4)):
+                assert port.apply(x, y) == ref.apply(x, y)
+                assert port.invert(x, y) == ref.invert(x, y)
+            combined, want = port.combine(local_port), ref.combine(local_ref)
+            assert (combined.scale, combined.offset) == (want.scale, want.offset)
+
+    def test_defaults_equal_reference(self):
+        assert transform.ZOOM_FACTOR == ref_transform.ZOOM_FACTOR
+        port, ref = transform.Transform(), ref_transform.Transform()
+        assert (port.scale, port.offset) == (ref.scale, ref.offset)
+
+
+# texts whose layouts the page path draws: BASELINE config 5's page
+# (benchmarks/configs.py:282-285), the stress page (benchmarks/stress.py:
+# 103-105), the dirty-strip tests' texts (tests/test_dirty_strip.py) and a
+# glyph DejaVu Sans lacks (U+02EA draws .notdef)
+LAYOUT_TEXTS = {
+    "config5": "\n".join(
+        "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(20)),
+    "stress": "\n".join(
+        "The quick brown fox jumps over the lazy dog. 0123456789 " for _ in range(10000 // 56)),
+    "dirty_strip": "\n".join(
+        f"Paragraph {i}: quick brown foxes office {i}!" for i in range(14)),
+    "short": "one\ntwo\nthree",
+    "accents": "Paragraph 0: quick brown foxes office 0! QjÂÇ",
+    "missing": "Ab\u02eacd\n\n  x",
+    "empty": "",
+}
+
+
+class TestLayout:
+    @pytest.mark.parametrize("name", sorted(LAYOUT_TEXTS))
+    def test_equals_reference(self, fonts, name):
+        port_font, ref_font = fonts["dejavu"]
+        text = LAYOUT_TEXTS[name]
+        port, ref = layout.layout_text(port_font, text), ref_layout.layout_text(ref_font, text)
+        for got, want in zip(port.instance_arrays(), ref.instance_arrays(), strict=True):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        for field in ("segments", "seg_counts", "boxes", "advance_widths"):
+            np.testing.assert_array_equal(getattr(port.batch, field),
+                                          getattr(ref.batch, field))
+        assert port.slot_gids == ref.slot_gids and port.slot_chars == ref.slot_chars
+        assert (port.width, port.height) == (ref.width, ref.height)
+        assert [(i.glyph_slot, i.x, i.y) for i in port.instances] == [
+            (i.glyph_slot, i.x, i.y) for i in ref.instances]
+
+    def test_default_options_equal_reference(self, fonts):
+        port_font, ref_font = fonts["dejavu"]
+        text = LAYOUT_TEXTS["short"]
+        port = layout.layout_text(port_font, text, kern=False, align="left",
+                                  line_height=None)
+        ref = ref_layout.layout_text(ref_font, text)
+        np.testing.assert_array_equal(port.batch.segments, ref.batch.segments)
+        for got, want in zip(port.instance_arrays(), ref.instance_arrays(), strict=True):
+            np.testing.assert_array_equal(got, want)
+        assert port.height == ref.height
+        assert port.instances[1].local_transform() == transform.Transform(
+            offset=(port.instances[1].x, port.instances[1].y))
+
+    @pytest.mark.parametrize("option,value", [
+        ("pad_batch_to", 16), ("line_height", 1000.0), ("kern", True), ("ligatures", True), ("marks", True), ("features", (b"liga",)),
+        ("vertical", True), ("positioning", (b"kern",)), ("wrap_width", 5000.0),
+        ("oblique", 0.2), ("rtl", True), ("bidi", True), ("alternate", 1),
+        ("letter_spacing", 10.0), ("word_spacing", 10.0), ("underline", True),
+        ("strikethrough", True), ("tracking_ptem", 12.0), ("aat_features", ((1, 0),)),
+        ("align", "center"), ("kashida", True),
+    ])
+    def test_unported_option_raises(self, fonts, option, value):
+        assert option in layout.UNPORTED
+        with pytest.raises(NotImplementedError, match=option):
+            layout.layout_text(fonts["dejavu"][0], "ab", **{option: value})
+
+    def test_unknown_option_raises(self, fonts):
+        with pytest.raises(TypeError, match="colour"):
+            layout.layout_text(fonts["dejavu"][0], "ab", colour=True)
+
+    @pytest.mark.parametrize("text,match", [
+        ("soft\u00adhyphen", "U\\+00AD \\(soft hyphen\\)"),
+        ("q\u0301", "combining mark U\\+0301"),    # no precomposed q: NFC keeps the mark
+        ("a\ufe0f", "U\\+FE0F"),                 # a variation selector (a mark)
+        ("a\u200db", "U\\+200D: only"),          # an unmapped default-ignorable (ZWJ)
+        ("\u0627\u0644", "U\\+0627: only"),     # Arabic
+        ("\u05d0", "U\\+05D0: only"),           # Hebrew
+        ("\u0915", "U\\+0915: only"),           # Devanagari, shaped by default
+    ])
+    def test_character_off_the_plain_path_raises(self, fonts, text, match):
+        with pytest.raises(NotImplementedError, match=match):
+            layout.layout_text(fonts["dejavu"][0], text)
+
+    def test_nfd_fallback_raises(self):
+        """A precomposed letter the font lacks, whose parts it maps, would be
+        drawn as base + mark by the original."""
+        cmap = tb.build_cmap([(3, 1, tb.build_cmap_format4(
+            [(0x65, 0x65, -0x64, None), (0x301, 0x301, -0x2FF, None)]))])
+        blob = tb.build_font([b"", square(), square(50)], cmap)
+        port_font = Font(blob)
+        assert port_font.glyph_index(0xE9) == 0 and port_font.glyph_index(0x65) == 1
+        assert layout.layout_text(port_font, "e").instances
+        with pytest.raises(NotImplementedError, match="decomposition"):
+            layout.layout_text(port_font, "\u00e9")
+
+    def test_morx_font_raises(self):
+        cmap = tb.build_cmap([(3, 1, tb.build_cmap_format4([(65, 65, -64, None)]))])
+        blob = tb.build_font([b"", square()], cmap,
+                             extra_tables={b"morx": b"\0" * 8})
+        with pytest.raises(NotImplementedError, match="morx"):
+            layout.layout_text(Font(blob), "A")

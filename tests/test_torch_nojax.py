@@ -29,6 +29,8 @@ MODULES = [
     "fontrx_torch.kernels.sdf_ref",
     "fontrx_torch.kernels.loopblinn",
     "fontrx_torch.kernels.loopblinn_ref",
+    "fontrx_torch.kernels.page",
+    "fontrx_torch.kernels.page_ref",
     "fontrx_torch.kernels.grid",
     "fontrx_torch.kernels.oracle",
     "fontrx_torch.font",
@@ -46,6 +48,10 @@ MODULES = [
     "fontrx_torch.io.qoi",
     "fontrx_torch.engine.raster",
     "fontrx_torch.engine.atlas",
+    "fontrx_torch.scene",
+    "fontrx_torch.scene.transform",
+    "fontrx_torch.scene.layout",
+    "fontrx_torch.scene.page",
     "chip_smoke",
 ]
 
@@ -77,7 +83,7 @@ def test_nvcc_flags_keep_float_rules():
 
 
 @pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh", "sdf.cu",
-                                    "loopblinn.cu"])
+                                    "loopblinn.cu", "page.cu"])
 def test_source_uses_no_fast_intrinsics(source):
     src = (_build.CSRC_DIR / source).read_text()
     for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):
