@@ -1,5 +1,6 @@
 """Drive fontrx_torch's glyph fill, tile coverage, SDF atlas, Loop-Blinn
-atlas and direct page paths once on one CUDA card, and check them.
+atlas, direct page and interactive MSAA paths once on one CUDA card, and
+check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -31,13 +32,18 @@ just after:
   triangle count, at 128 px on 128 x 128 tiles through
   ``loopblinn.loopblinn_batch``, and 'g' at 128 px through
   ``loopblinn.loopblinn_fill``;
-- **direct page** (BASELINE config 5's frame): twenty lines of text laid out
-  by ``fontrx_torch.scene.layout`` on a 1920 x 1080 page, its first frame and
-  config 5's 30 zoom/pan events (``benchmarks/configs.py:287-295``, applied
-  with ``ViewTransform.zoomed``/``dragged``), a 256-row band and the debug
-  gray, each through ``PageRenderer.render_direct``; then the stress page
-  (``benchmarks/stress.py:93-124``): a 10k-character text on a 3840 x 2160
-  page zoomed out by 8 steps, and five frames zooming on from there.
+- **direct page** (BASELINE config 5): twenty lines of text on a 1920 x 1080
+  page through ``fontrx_torch.scene.interactive.InteractiveSession`` exactly
+  as ``benchmarks/configs.py:276-295`` drives it: ``frame()``, then 30
+  zoom/pan events with a frame after each; a 256-row band through its
+  renderer, then the ``d`` and ``t`` toggles once each through
+  ``display_frame()``; then the stress page (``benchmarks/stress.py:93-124``):
+  a 10k-character text on a 3840 x 2160 page zoomed out by 8 steps, and five
+  frames zooming on from there, through ``PageRenderer.render_direct``;
+- **page MSAA** (the session's ``m`` key): config 5's 31 frames again in a
+  session with ``m`` pressed (the wide route: K8's pairs), a narrow session
+  (640 x 480, six lines, ``m`` pressed, three events: the four-pass route)
+  and the stress page's 6 frames through ``render_direct(msaa=True)``.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -46,13 +52,18 @@ against the plain version on the CPU), the atlases against the NumPy oracle
 start against the oracle's fill, the Loop-Blinn fill against the
 winding fill at tie-free sample offsets on the glyphs of the JAX package's
 own test (``tests/test_geometry.py``), and the pages against the plain
-version (every frame, whole; config 5's band and gray; a 128-row band of the
-4K page), the winding kernel at batch 1 (config 5's first frame, whose
-transform is exact) and the oracle (every 64th row of that frame), and
+version (every frame, whole; config 5's band, gray and transparent frame; a
+128-row band of the 4K page), the winding kernel at batch 1 (config 5's first
+frame, whose transform is exact) and the oracle (every 64th row of that
+frame), the MSAA frames against the plain version (every frame, whole), the
+first config 5 and narrow MSAA frames against four winding-kernel passes at
+the sample offsets, and config 5's against the oracle at the four offsets
+(every 128th row from row 32; the oracle runs a row per process), and
 times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
-(what a caller waits for, host launch overhead included). Any failure raises
-and exits non-zero. The last two lines are JSON: the kernels' record (each
+(what a caller waits for, host launch overhead included), and each session's
+frames as its user sees them (``stats()``: the page to the host included).
+Any failure raises and exits non-zero. The last two lines are JSON: the kernels' record (each
 kernel's times beside its bound, from ``fontrx_torch.bound``, and the host
 pack times), then ``{"ok": true, "device": {...}}``.
 """
@@ -60,17 +71,21 @@ pack times), then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import pathlib
 import statistics
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from itertools import repeat
 
 import numpy as np
 import torch
 
 from fontrx_torch.bound import (
-    bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_work, sdf_work, solve_work)
+    bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes, page_msaa_work,
+    page_work, sdf_work, solve_work)
 from fontrx_torch.convert import grid_anchors, packed_to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
@@ -84,6 +99,7 @@ from fontrx_torch.kernels import (
     sdf_ref, winding, winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import glyph_segments, pack_glyph
+from fontrx_torch.scene.interactive import InteractiveSession
 from fontrx_torch.scene.layout import layout_text
 from fontrx_torch.scene.page import PageRenderer
 from fontrx_torch.scene.transform import ViewTransform
@@ -115,18 +131,28 @@ LB_WINDING_CHARS = "AOBg8@&WQ%"
 LB_WINDING_SIZE = 64
 LB_WINDING_OFFSET = (1 / 3, 1 / 3)
 # BASELINE config 5 (benchmarks/configs.py:276-295): twenty lines on a
-# 1920 x 1080 page, then 30 zoom/pan events; and the stress page
+# 1920 x 1080 page in an interactive session, then 30 zoom/pan events; and
+# the stress page
 # (benchmarks/stress.py:93-124): the line below repeated to 10k characters
 # on a 3840 x 2160 page, zoomed out by 8 steps, then five frames zooming in
 CONFIG5_TEXT = "\n".join(
     "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(20))
 CONFIG5_SIZE = (1920, 1080)
+CONFIG5_EVENTS = tuple(("scroll", 0.5 if i % 2 else -0.5, (0.1, 0.1)) if i % 3 == 0
+                       else ("drag", 0.01, 0.005) for i in range(30))
 STRESS_LINE = "The quick brown fox jumps over the lazy dog. 0123456789 "
 STRESS_TEXT = "\n".join(STRESS_LINE for _ in range(10000 // len(STRESS_LINE)))
 STRESS_SIZE = (3840, 2160)
 PAGE_BAND = (400, 256)        # config 5's band: rows [400, 656)
 STRESS_REF_BAND = (1016, 128)  # the 4K page's rows held to the plain version
 PAGE_ORACLE_STRIDE = 64
+# the MSAA oracle's rows of config 5's first MSAA frame: every 128th from 32
+MSAA_ORACLE_ROWS = range(32, CONFIG5_SIZE[1], 128)
+# a session below the wide route: six lines on 640 x 480, m pressed, three events
+NARROW_TEXT = "\n".join(
+    "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(6))
+NARROW_SIZE = (640, 480)
+NARROW_EVENTS = (("scroll", -0.5, (0.1, 0.1)), ("drag", 0.01, 0.005), ("scroll", 0.5, (0.0, 0.2)))
 
 KERNELS = (winding, coverage, sdf, loopblinn, page)
 
@@ -135,6 +161,7 @@ def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     for module in KERNELS:
         module.launches = 0
+    page.msaa_launches = 0
 
 
 def check(ok: bool, what: str) -> None:
@@ -261,18 +288,25 @@ def load_meshes(font_path, chars, size):
     return tris, classes, grids, pack_s
 
 
-def config5_views(upem):
-    """Config 5's first view and its 30 zoom/pan events, one view each
-    (benchmarks/configs.py:287-295)."""
-    view = ViewTransform.init(upem, *CONFIG5_SIZE)
-    views = [view]
-    for i in range(30):
-        if i % 3 == 0:
-            view = view.zoomed(0.5 if i % 2 else -0.5, (0.1, 0.1))
-        else:
-            view = view.dragged(0.01, 0.005)
-        views.append(view)
-    return views
+def open_session(font, text, size, dev):
+    """Open an interactive session on ``text`` and compact its segment stream
+    (once per layout); returns the session and the host time."""
+    t0 = time.perf_counter()
+    sess = InteractiveSession(font, text, *size, dev)
+    sess.renderer.page_inputs(sess.view)
+    torch.cuda.synchronize()
+    return sess, time.perf_counter() - t0
+
+
+def run_events(sess, events):
+    """A frame, then ``events`` with a frame after each: the frames (host
+    arrays) and the view of each."""
+    frames, views = [sess.frame()], [sess.view]
+    for name, *args in events:
+        getattr(sess, name)(*args)
+        frames.append(sess.frame())
+        views.append(sess.view)
+    return frames, views
 
 
 def stress_views(upem):
@@ -292,17 +326,42 @@ def load_page(font, text, size, view, dev):
     return renderer, time.perf_counter() - t0
 
 
-def winding_page(inputs, page_h, page_w):
+def winding_page(inputs, page_h, page_w, sample_offset=(0.0, 0.0)):
     """The page from the winding kernel at batch 1 on the page-space stream
-    (anchors 0 and ``page_h - 1``, scale 1): int32 ``[page_h, page_w]``. It
-    solves every (segment, row) pair, so it is the page where no root
-    strays."""
+    (anchors 0 and ``page_h - 1``, scale 1) at ``sample_offset``: int32
+    ``[page_h, page_w]``. It solves every (segment, row) pair, so it is the
+    page where no root strays."""
     flat = page_ref.transform_segments(*inputs)[None].contiguous()
     dev = flat.device
     return winding.winding_batch(
         flat, torch.zeros(1, dtype=torch.int32, device=dev),
         torch.full((1,), page_h - 1, dtype=torch.int32, device=dev), 1.0,
-        height=page_h, width=page_w)[0]
+        height=page_h, width=page_w, sample_offset=sample_offset)[0]
+
+
+def msaa_from_windings(windings):
+    """The MSAA pixel from the four samples' int32 windings: nonzero ones
+    counted, times 255, floor-divided by 4."""
+    return sum(w != 0 for w in windings) * 255 // 4  # sum() starts at int 0
+
+
+def oracle_row(q, xs, y):
+    """The oracle's winding (``contract=False``) of page-space segments ``q``
+    on one sample row ``y`` at columns ``xs``: int32 ``[1, len(xs)]``."""
+    return oracle.winding_at(q, xs[None, :], np.float32([[y]]), contract=False)
+
+
+def oracle_rows(q, page_w, rows):
+    """The oracle on sample rows ``rows``, ``(y, ox)`` each, at columns
+    ``x = f32(c) + ox``: int32 ``[len(rows), page_w]``. A row per process of
+    a pool as wide as the host's cores (forked: the workers run NumPy only),
+    a pool that ends with the call."""
+    cols = np.arange(page_w).astype(np.float32)
+    with ProcessPoolExecutor(os.cpu_count() or 1,
+                             mp_context=multiprocessing.get_context("fork")) as pool:
+        return np.concatenate(list(pool.map(
+            oracle_row, repeat(q), [cols + np.float32(ox) for _, ox in rows],
+            [y for y, _ in rows])))
 
 
 def main() -> None:
@@ -403,30 +462,60 @@ def main() -> None:
     print(f"Loop-Blinn path: {lb_launches} Loop-Blinn kernel launches, "
           f"{winding.launches} winding, {coverage.launches} coverage, {sdf.launches} SDF")
 
-    # --- direct page path (BASELINE config 5's frame, the 4K stress page) ---
+    # --- direct page path (BASELINE config 5's session, the 4K stress page) --
     upem = font.info.units_per_em
-    views5, views4k = config5_views(upem), stress_views(upem)
-    page5, pack_s["config5_layout"] = load_page(font, CONFIG5_TEXT, CONFIG5_SIZE, views5[0],
-                                                dev)
+    views4k = stress_views(upem)
+    sess5, pack_s["config5_layout"] = open_session(font, CONFIG5_TEXT, CONFIG5_SIZE, dev)
     page4k, pack_s["page4k_layout"] = load_page(font, STRESS_TEXT, STRESS_SIZE, views4k[0], dev)
     reset_counts()
-    frames5 = [page5.render_direct(view) for view in views5]
-    band5 = page5.render_direct(views5[0], band=PAGE_BAND)
-    gray5 = page5.render_direct(views5[0], debug=True)
+    frames5, views5 = run_events(sess5, CONFIG5_EVENTS)
+    stats5 = sess5.stats()  # config 5's frames as the user sees them
+    band5 = sess5.renderer.render_direct(views5[0], band=PAGE_BAND)
+    sess5.key("d")
+    gray5 = sess5.display_frame()      # the debug gray at the last view, opaque
+    sess5.key("d")
+    sess5.key("t")
+    clear5 = sess5.display_frame()     # the fill again, transparent
     frames4k = [page4k.render_direct(view) for view in views4k]
     torch.cuda.synchronize()
     page_launches = page.launches
-    check(page_launches == len(views5) + 2 + len(views4k),
-          f"render_direct launched the page kernel {page_launches} times")
-    check(winding.launches == 0, "render_direct launched the winding kernel")
-    print(f"page path: {page_launches} page kernel launches ({len(views5)} config5 frames, "
-          f"a band and the gray, {len(views4k)} 4K frames), {winding.launches} winding; "
-          f"host layout and compaction: config5 {pack_s['config5_layout']:.3f} s, "
-          f"page4k {pack_s['page4k_layout']:.3f} s")
+    check(page_launches == len(views5) + 3 + len(views4k),
+          f"the page path launched the page kernel {page_launches} times")
+    check(page.msaa_launches == 0 and winding.launches == 0,
+          "the page path launched the MSAA or the winding kernel")
+    print(f"page path: {page_launches} page kernel launches ({len(views5)} config5 session "
+          f"frames, a band, the d and t frames, {len(views4k)} 4K frames), {winding.launches} "
+          f"winding, {page.msaa_launches} MSAA; host layout and compaction: config5 "
+          f"{pack_s['config5_layout']:.3f} s, page4k {pack_s['page4k_layout']:.3f} s; "
+          f"config5 session stats {json.dumps(stats5)}")
+
+    # --- page MSAA path (the session's m key, the 4K stress page) -----------
+    sess5m, _ = open_session(font, CONFIG5_TEXT, CONFIG5_SIZE, dev)
+    sessn, pack_s["narrow_layout"] = open_session(font, NARROW_TEXT, NARROW_SIZE, dev)
+    reset_counts()
+    sess5m.key("m")
+    msaa5, views5m = run_events(sess5m, CONFIG5_EVENTS)
+    sessn.key("m")
+    msaan, viewsn = run_events(sessn, NARROW_EVENTS)
+    msaa4k = [page4k.render_direct(view, msaa=True) for view in views4k]
+    torch.cuda.synchronize()
+    msaa_launches = page.msaa_launches
+    check(msaa_launches == len(views5m) + len(viewsn) + len(views4k),
+          f"the MSAA path launched the MSAA kernel {msaa_launches} times")
+    check(page.launches == 0 and winding.launches == 0,
+          "the MSAA path launched the single-sample page kernel or the winding kernel")
+    check(views5m == views5, "the MSAA session's views differ from config 5's")
+    stats5m, statsn = sess5m.stats(), sessn.stats()
+    print(f"MSAA path: {msaa_launches} MSAA kernel launches ({len(views5m)} config5 session "
+          f"frames, {len(viewsn)} narrow session frames, {len(views4k)} 4K frames), "
+          f"{page.launches} single-sample page, {winding.launches} winding; config5 session "
+          f"stats {json.dumps(stats5m)}; narrow session stats {json.dumps(statsn)}")
 
     # --- checks ------------------------------------------------------------
-    record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}, "page": {}}
-    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0, "page": 0}
+    record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}, "page": {},
+              "page_msaa": {}}
+    max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0, "page": 0,
+               "page_msaa": 0}
     for name, (batch, grids, size) in atlases.items():
         args = packed_to_device(batch, grids, dev)
         b = len(grids)
@@ -606,7 +695,8 @@ def main() -> None:
           f"{call_ms:.4f} ms per wrapper call; bound {b_ms:.5f} ms ({bound_by}; {nbytes} B, "
           f"{ops} FP32 ops, {pairs} inside pairs); plain version {plain_ms:.3f} ms")
 
-    for name, renderer, views, frames in (("config5", page5, views5, frames5),
+    frames5 = [torch.from_numpy(f).to(dev) for f in frames5]  # the session's host frames
+    for name, renderer, views, frames in (("config5", sess5.renderer, views5, frames5),
                                           ("page4k", page4k, views4k, frames4k)):
         h, w = renderer.height, renderer.width
         per_frame = []
@@ -658,22 +748,26 @@ def main() -> None:
             check(torch.equal(band5, page_ref.direct_page(*inputs, y0, page_h=h, page_w=w,
                                                           out_h=rows)),
                   "config5 band differs from page_ref's")
-            check(torch.equal(gray5, page_ref.finish(ref, "gray")),
-                  "config5 debug gray differs from page_ref's")
+            last = page_ref.direct_page(*renderer.page_inputs(views[-1]), page_h=h, page_w=w,
+                                        mode="gray").cpu().numpy()
+            check(gray5.shape == (h, w, 4) and (gray5[..., 3] == 255).all()
+                  and all(np.array_equal(gray5[..., c], last) for c in range(3)),
+                  "config5 d frame: not page_ref's debug gray, opaque")
+            fill_last = frames[-1].cpu().numpy()
+            check(all(np.array_equal(clear5[..., c], fill_last) for c in range(4)),
+                  "config5 t frame: not the last fill with alpha = coverage")
             q = page_ref.transform_segments(*inputs).cpu().numpy()
             rows_o = np.arange(0, h, PAGE_ORACLE_STRIDE)
-            xs = np.arange(w).astype(np.float32)[None, :]
             t1 = time.perf_counter()
-            wo = np.concatenate([  # a row at a time: the oracle's chunks stay small
-                oracle.winding_at(q, xs, np.float32([[h - 1 - r]]), contract=False)
-                for r in rows_o])
+            wo = oracle_rows(q, w, [(np.float32(h - 1 - r), 0.0) for r in rows_o])
             oracle_s = time.perf_counter() - t1
             mism = int((wo != ref[rows_o].cpu().numpy()).sum())
             check(mism == 0, f"config5: {mism} pixels differ from the oracle")
             print(f"config5: the band {PAGE_BAND} equals the frame's rows and page_ref's band; "
-                  f"the debug gray equals page_ref's; 0 of {len(rows_o) * w} pixels on every "
-                  f"{PAGE_ORACLE_STRIDE}th row of the first frame differ from the oracle (took "
-                  f"{oracle_s:.1f} s)")
+                  f"the d frame is page_ref's debug gray at the last view, opaque; the t frame "
+                  f"is the last fill with alpha = coverage; 0 of {len(rows_o) * w} pixels on "
+                  f"every {PAGE_ORACLE_STRIDE}th row of the first frame differ from the oracle "
+                  f"(took {oracle_s:.1f} s)")
         else:
             y0, rows = STRESS_REF_BAND
             ref = page_ref.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows,
@@ -716,6 +810,9 @@ def main() -> None:
             y0, rows = STRESS_REF_BAND
             rec["band_ms"] = graph_ms(
                 lambda: page.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows))
+        if name == "config5":  # the user's frame: the session's, the page to the host included
+            rec.update(session_frame_ms=stats5["mean_ms"], session_p99_ms=stats5["p99_ms"],
+                       session_compute_ms=stats5["compute_ms"])
         record["page"][name] = rec
         print(f"{name} page: S {len(inputs[0])} segments, {len(inputs[2])} instances, "
               f"{len(per_frame)} frames; mean per frame: kernel {rec['ms']:.4f} ms on the "
@@ -726,6 +823,104 @@ def main() -> None:
               f"{first['bound_ms']:.5f} ms, visited {first['visited_pairs']}, render_direct "
               f"{call_ms:.4f} ms per call, winding.cu on the same page {winding_ms:.4f} ms, "
               f"frame to host {d2h_ms:.4f} ms, plain version {plain_ms:.3f} ms")
+
+    lattice = [(ox, oy) for oy, oxs in page_ref.msaa_lattice() for ox in oxs]
+    for name, renderer, views, frames, stats in (
+            ("config5", sess5m.renderer, views5m, msaa5, stats5m),
+            ("narrow", sessn.renderer, viewsn, msaan, statsn),
+            ("page4k", page4k, views4k, msaa4k, None)):
+        h, w = renderer.height, renderer.width
+        frames = [torch.as_tensor(f).to(dev) for f in frames]  # the sessions' are host arrays
+        per_frame = []
+        ref_s = 0.0
+        for k, (view, frame) in enumerate(zip(views, frames)):
+            check(frame.shape == (h, w) and frame.dtype == torch.uint8, f"{name} MSAA shape")
+            inputs = renderer.page_inputs(view)
+            t0 = time.perf_counter()
+            want = page_ref.direct_page_msaa(*inputs, page_h=h, page_w=w)
+            torch.cuda.synchronize()
+            ref_s += time.perf_counter() - t0
+            diff = int((frame != want).sum())
+            max_err["page_msaa"] = max(max_err["page_msaa"],
+                                       int((frame.int() - want.int()).abs().max()))
+            check(diff == 0, f"{name} MSAA frame {k}: {diff} pixels differ from page_ref")
+            check(set(torch.unique(frame).tolist()) <= {0, 63, 127, 191, 255},
+                  f"{name} MSAA frame {k}: a value off the 2 x 2 lattice")
+            q = page_ref.transform_segments(*inputs).reshape(-1, 6)
+            ops, needed, crossings = page_msaa_work(*inputs, page_h=h, page_w=w)
+            nbytes = page_msaa_bytes(len(inputs[0]), len(inputs[2]), h, w)
+            b_ms, bound_by = bound_ms(nbytes, ops)
+            per_frame.append(dict(
+                ms=graph_ms(lambda: page.direct_page_msaa(*inputs, page_h=h, page_w=w),
+                            calls=10),
+                bound_ms=b_ms, bound_by=bound_by, bound_ops=ops, needed_pairs=needed,
+                crossings=crossings,
+                visited_pairs=sum(int(page_ref.page_rows(q, h - 1, h, w, oy, oxs).sum())
+                                  for oy, oxs in page_ref.msaa_lattice()),
+                partial=int(((frame > 0) & (frame < 255)).sum())))
+        inputs = renderer.page_inputs(views[0])
+        note = ""
+        if name != "page4k":  # the first view: the transform is exact, no root strays
+            passes = [winding_page(inputs, h, w, off) for off in lattice]
+            diff = int((frames[0] != msaa_from_windings(passes)).sum())
+            check(diff == 0, f"{name} first MSAA frame: {diff} pixels differ from four "
+                  "winding-kernel passes")
+            note = "; the first frame equals four winding-kernel passes at the sample offsets"
+        if name == "config5":
+            q = page_ref.transform_segments(*inputs).cpu().numpy()
+            rows_o = np.array(MSAA_ORACLE_ROWS)
+            t1 = time.perf_counter()
+            wo = oracle_rows(q, w, [(np.float32(h - 1 - r) + np.float32(oy), ox)
+                                    for ox, oy in lattice for r in rows_o])
+            wo = wo.reshape(len(lattice), len(rows_o), w)
+            oracle_s = time.perf_counter() - t1
+            mism = int((msaa_from_windings(wo) != frames[0][rows_o].cpu().numpy()).sum())
+            check(mism == 0, f"config5 first MSAA frame: {mism} pixels differ from the oracle")
+            note += (f"; 0 of {len(rows_o) * w} pixels on rows {rows_o.tolist()} differ from the "
+                     f"oracle at the four offsets (took {oracle_s:.1f} s)")
+        print(f"{name} MSAA: {len(frames)} frames {h}x{w}: 0 pixels differ from page_ref "
+              f"(page_ref took {ref_s:.2f} s in all){note}; per frame:")
+        for k, f in enumerate(per_frame):
+            print(f"  {name} MSAA frame {k}: {f['ms']:.4f} ms, bound {f['bound_ms']:.5f} ms "
+                  f"({f['bound_by']}), visited {f['visited_pairs']}, needed "
+                  f"{f['needed_pairs']}, crossings {f['crossings']}, partial {f['partial']}")
+
+        first = per_frame[0]
+        call_ms = cuda_ms(lambda: renderer.render_direct(views[0], msaa=True), inner=10)
+        four_ms = graph_ms(lambda: [page.direct_page(*inputs, page_h=h, page_w=w,
+                                                     sample_offset=off) for off in lattice],
+                           calls=5)
+        plain_ms = cuda_ms(lambda: page_ref.direct_page_msaa(*inputs, page_h=h, page_w=w),
+                           inner=1, reps=3, warmup=1)
+
+        def mean(key):
+            return statistics.fmean(f[key] for f in per_frame)
+
+        rec = dict(ms=mean("ms"), plain_ms=plain_ms, call_ms=call_ms,
+                   bound_ms=mean("bound_ms"), bound_by=first["bound_by"],
+                   frames=len(per_frame), bound_ops=mean("bound_ops"),
+                   bound_bytes=page_msaa_bytes(len(inputs[0]), len(inputs[2]), h, w),
+                   segments=len(inputs[0]), visited_pairs=mean("visited_pairs"),
+                   needed_pairs=mean("needed_pairs"), crossings=mean("crossings"),
+                   max_ms=max(f["ms"] for f in per_frame), first_ms=first["ms"],
+                   first_bound_ms=first["bound_ms"], four_page_passes_first_ms=four_ms,
+                   plain_all_frames_s=ref_s)
+        if stats is not None:  # the user's frame: the session's, the page to the host included
+            rec.update(session_frame_ms=stats["mean_ms"], session_p99_ms=stats["p99_ms"],
+                       session_compute_ms=stats["compute_ms"])
+        record["page_msaa"][name] = rec
+        single = record["page"].get(name, {}).get("ms")
+        print(f"{name} MSAA page: S {len(inputs[0])} segments, {len(per_frame)} frames; mean "
+              f"per frame: kernel {rec['ms']:.4f} ms on the device (max {rec['max_ms']:.4f}"
+              + (f"; {rec['ms'] / single:.2f}x the single-sample page's {single:.4f}"
+                 if single else "")
+              + f"), bound {rec['bound_ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.1%} of the "
+              f"kernel's time), visited pairs {rec['visited_pairs']:.0f}, needed "
+              f"{rec['needed_pairs']:.0f}, crossings {rec['crossings']:.0f}; first frame: "
+              f"kernel {first['ms']:.4f} ms, four single-sample page passes {four_ms:.4f} ms, "
+              f"render_direct {call_ms:.4f} ms per call, plain version {plain_ms:.3f} ms"
+              + (f"; session frame {stats['mean_ms']:.3f} ms (p99 {stats['p99_ms']:.3f}), "
+                 f"render alone {stats['compute_ms']:.3f} ms" if stats else ""))
 
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
@@ -757,10 +952,11 @@ def main() -> None:
         capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    def entry_of(kname, replaces, launches, main_atlas="ascii256", **extra):
+    def entry_of(kname, replaces, launches, main_atlas="ascii256", source=None, **extra):
         main = record[kname][main_atlas]
         return {
-            "name": kname, "route": "cuda", "source": f"fontrx_torch/csrc/{kname}.cu",
+            "name": kname, "route": "cuda",
+            "source": source or f"fontrx_torch/csrc/{kname}.cu",
             "replaces": replaces, **extra, "launches": launches,
             "max_abs_err": max_err[kname],
             # the main atlas in the main keys, the other atlases beside them
@@ -781,6 +977,8 @@ def main() -> None:
                  main_atlas="ascii128"),
         entry_of("page", "fontrx/kernels/winding_page.py:267", page_launches,
                  main_atlas="config5"),
+        entry_of("page_msaa", "fontrx/kernels/winding_page.py:537", msaa_launches,
+                 main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
     ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -58,10 +58,14 @@ operation per crossing and one per pixel (``page_work``). A pair is needed
 when the page solves it (the reference's chunk cull, ``page_ref``) and its
 row's sample y lies in the segment's control-hull y-range, or the float
 program gives it a root in ``[0, 1)`` all the same: a nearly straight
-quadratic's rounded roots can stray off its hull, and they change the page. Its bytes are the
-em-space stream (24 B a segment and a 4 B owner), 8 B per instance offset
-and the output once: 4 B a pixel for the int32 winding, 1 B for the fill or
-gray (``page_bytes``).
+quadratic's rounded roots can stray off its hull, and they change the page.
+Its bytes are the em-space stream (24 B a segment and a 4 B owner), 8 B per
+instance offset and the output once: 4 B a pixel for the int32 winding, 1 B
+for the fill or gray (``page_bytes``). The 2 x 2 MSAA page
+(``page_msaa_work``) needs the transform and constants once, the needed
+pairs of both row lattices (one per ``oy``), two placements per crossing
+(one per x sample) and four tests per pixel; its bytes are the same stream,
+offsets and uint8 page (``page_msaa_bytes``).
 """
 
 from __future__ import annotations
@@ -283,27 +287,63 @@ def page_bytes(segments: int, instances: int, out_h: int, page_w: int, mode: str
 
 
 def page_work(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0=0, *, page_h, page_w,
-              out_h=None):
-    """FP32 operations of the direct page render on these inputs, the
-    (segment, row) pairs it needs and its crossings: ``(ops, pairs,
-    crossings)``. A pair is needed where the page solves it
-    (``page_ref.solved_rows``) and its row lies in the segment's control-hull
-    y-range or gets a crossing. Tensors, as ``page_ref.direct_page`` takes
-    them; the count runs on their device."""
+              out_h=None, sample_offset=(0.0, 0.0)):
+    """FP32 operations of the direct page render on these inputs at the
+    sample offset ``(ox, oy)``, the (segment, row) pairs it needs and its
+    crossings: ``(ops, pairs, crossings)``. A pair is needed where the page
+    solves it (``page_ref.solved_rows``) and its row lies in the segment's
+    control-hull y-range or gets a crossing. Tensors, as
+    ``page_ref.direct_page`` takes them; the count runs on their device."""
     oh = page_h if out_h is None else out_h
-    top = page_h - 1 - band_y0
+    ox, oy = sample_offset
     q = page_ref.transform_segments(flat_segments, seg_inst_idx, inst_offsets,
                                     s_px).reshape(-1, 6)
-    cy = page_ref.row_coords(top, oh, q.device)
-    strips = page_ref.strip_table(q, top, oh, page_w)
-    row_strip = torch.arange(oh, device=q.device) // page_ref.STRIP_ROWS
+    ops, pairs, crossings = _page_pairs(q, page_h - 1 - band_y0, oh, page_w, oy, (ox,))
+    return _page_constants(q) + ops + crossings + oh * page_w, pairs, crossings
+
+
+def page_msaa_work(flat_segments, seg_inst_idx, inst_offsets, s_px, *, page_h, page_w):
+    """FP32 operations of the 2 x 2 MSAA page on these inputs, the (segment,
+    row) pairs it needs over both row lattices and their crossings:
+    ``(ops, pairs, crossings)``. Each segment's transform and constants
+    count once; each pair needed on the lattice of an ``oy`` (as the pair
+    function solves it, ``page_ref.windings``) its solve once; each crossing
+    one placement per x sample; each pixel one test per sample."""
+    q = page_ref.transform_segments(flat_segments, seg_inst_idx, inst_offsets,
+                                    s_px).reshape(-1, 6)
+    ops, pairs, crossings = _page_constants(q), 0, 0
+    for oy, oxs in page_ref.msaa_lattice():
+        o, p, c = _page_pairs(q, page_h - 1, page_h, page_w, oy, oxs)
+        ops, pairs, crossings = ops + o + c * len(oxs), pairs + p, crossings + c
+    return ops + 4 * page_h * page_w, pairs, crossings
+
+
+def page_msaa_bytes(segments: int, instances: int, page_h: int, page_w: int):
+    """Bytes the MSAA page must move: the em-space stream, the instance
+    offsets and the uint8 page, once."""
+    return page_bytes(segments, instances, page_h, page_w, "fill")
+
+
+def _page_constants(q):
+    """Operations each page-space segment ``q`` needs once: its transform
+    and its constants."""
+    p0y, p1y, p2y = q[:, 1], q[:, 3], q[:, 5]
+    n_quad = int(((p0y - 2 * p1y + p2y) != 0).sum())
+    return (PAGE_TRANSFORM + 9) * len(q) + 4 * n_quad + 2 * (len(q) - n_quad)
+
+
+def _page_pairs(q, top: int, rows: int, page_w: int, oy, oxs):
+    """The solves of the page's needed pairs on ``rows`` rows (row 0 at
+    ``y = f32(top) + oy``, the page at the x offsets ``oxs``): ``(ops,
+    pairs, crossings)``."""
+    cy = page_ref.row_coords(top, rows, q.device, oy)
+    strips = page_ref.strip_table(q, top, rows, page_w, oy, oxs)
+    row_strip = torch.arange(rows, device=q.device) // page_ref.STRIP_ROWS
     p0y, p1y, p2y = q[:, 1], q[:, 3], q[:, 5]
     quad = (p0y - 2 * p1y + p2y) != 0
     lin = ~quad & (p2y != p0y)
-    n_quad = int(quad.sum())
-    ops = (PAGE_TRANSFORM + 9) * len(q) + 4 * n_quad + 2 * (len(q) - n_quad)
-    pairs = crossings = 0
-    step = max(1, _PAGE_PAIR_CHUNK // max(oh, 1))
+    ops = pairs = crossings = 0
+    step = max(1, _PAGE_PAIR_CHUNK // max(rows, 1))
     for s0 in range(0, len(q), step):
         qc = q[s0 : s0 + step]
         roots, live = page_ref.row_roots(qc, cy)
@@ -318,4 +358,4 @@ def page_work(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0=0, *, pag
                 + 4 * int(nl.sum()) + 4 * int((roots * nl).sum()))
         pairs += int((nq | nl).sum())
         crossings += int(roots.sum())
-    return ops + crossings + oh * page_w, pairs, crossings
+    return ops, pairs, crossings

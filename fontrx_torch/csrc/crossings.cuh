@@ -69,6 +69,16 @@ __device__ __forceinline__ void deposit(int* bucket_row, const float* cx, int W,
   if (k > 0) atomicAdd(&bucket_row[k], sign);
 }
 
+// Run by one whole warp: the sum of v over this lane and the lanes above it.
+__device__ __forceinline__ int warp_suffix_sum(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_down_sync(0xffffffffu, v, off);
+    if (lane + off < 32) v += t;
+  }
+  return v;
+}
+
 // Run by one whole warp over one bucket row of W + 1 entries: calls
 // emit(c, w) for every column c in [0, W), w = sum of bucket_row[j] for
 // j > c. Right to left in 32-column pieces, each an inclusive suffix scan
@@ -79,12 +89,7 @@ __device__ __forceinline__ void suffix_scan_row(const int* bucket_row, int W, in
   int carry = 0;
   for (int base = ((W - 1) >> 5) << 5; base >= 0; base -= 32) {
     const int c = base + lane;
-    int s = c < W ? bucket_row[c + 1] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_down_sync(0xffffffffu, s, off);
-      if (lane + off < 32) s += t;
-    }
+    const int s = warp_suffix_sum(c < W ? bucket_row[c + 1] : 0, lane);
     if (c < W) emit(c, s + carry);
     carry += __shfl_sync(0xffffffffu, s, 0);
   }

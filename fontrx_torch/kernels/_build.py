@@ -32,46 +32,61 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# library -> the C functions it exports -> (restype, argtypes)
 _SIGNATURES = {
-    "winding": (
+    "winding": {"winding": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
          ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
-    ),
-    "coverage": (
+    )},
+    "coverage": {"coverage": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
          ctypes.c_float, ctypes.c_float, ctypes.c_int,        # scale, inv_k2, k
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
-    ),
-    "sdf": (
+    )},
+    "sdf": {"sdf": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
          ctypes.c_void_p,                                     # winding
          ctypes.c_float, ctypes.c_float,                      # scale, spread
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
-    ),
-    "loopblinn": (
+    )},
+    "loopblinn": {"loopblinn": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p,                    # tris, classes
          ctypes.c_void_p, ctypes.c_void_p,                    # min_x, max_y
          ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
-    ),
-    "page": (
-        ctypes.c_int,
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, owner, offsets
-         ctypes.c_int, ctypes.c_int, ctypes.c_float,          # S, N, s_px
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # top, out_h, W, mode
-         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
-         ctypes.c_void_p],                                    # stream
-    ),
+    )},
+    "page": {
+        "page": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, owner, offsets
+             ctypes.c_int, ctypes.c_int, ctypes.c_float,          # S, N, s_px
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # top, out_h, W, mode
+             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
+             ctypes.c_float, ctypes.c_float,                      # ox, oy
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
+             ctypes.c_void_p],                                    # stream
+        ),
+        "page_msaa": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, owner, offsets
+             ctypes.c_int, ctypes.c_int, ctypes.c_float,          # S, N, s_px
+             ctypes.c_int, ctypes.c_int,                          # H, W
+             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
+             ctypes.c_float, ctypes.c_float,                      # ox0, ox1
+             ctypes.c_float, ctypes.c_float,                      # oy0, oy1
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
+             ctypes.c_void_p],                                    # stream
+        ),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -126,13 +141,13 @@ def build(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, load once, and declare the C signature."""
+    """Build if needed, load once, and declare the C signatures."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        restype, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+        for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _loaded[name] = lib
     return lib

@@ -1,11 +1,14 @@
-"""The CUDA page kernel (``csrc/page.cu``) and its wrapper.
+"""The CUDA page kernels (``csrc/page.cu``) and their wrappers.
 
-The kernel replaces the TPU's page kernel, K7
+``direct_page`` launches the kernel that replaces the TPU's page kernel, K7
 (``winding_page.py::_make_page_kernel``, launcher ``winding_page_batch``),
-and the narrow-page route beside it, and computes what they compute, their
-chunk cull included (``page_ref``); see the note in the source. A tensor
-on the CPU goes to the plain version, ``page_ref``. A CUDA tensor goes to
-the kernel, and a failed build or launch raises.
+and the narrow-page route beside it; ``direct_page_msaa`` the one that
+replaces its MSAA kernel, K8 (``_make_page_msaa_kernel``, launcher
+``winding_page_msaa_batch``), and the narrow route's four passes. Both
+compute what the reference computes, its chunk cull included
+(``page_ref``); see the note in the source. A tensor on the CPU goes to the
+plain version, ``page_ref``. A CUDA tensor goes to the kernel, and a failed
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ from fontrx_torch.kernels.page_ref import MODES
 
 SOURCE = "fontrx_torch/csrc/page.cu"
 
-# launches of the kernel in this process; the wrapper adds one per launch
+# launches of each kernel in this process; its wrapper adds one per launch:
+# the single-sample page (K7's) and the MSAA page (K8's), one a frame each
 launches = 0
+msaa_launches = 0
 
 _INT32_MAX = 2**31 - 1
 
@@ -34,11 +39,12 @@ def _check(name, t, dtype, shape):
 
 
 def check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0, page_h, page_w,
-                 out_h, mode):
-    """Check what the kernel takes: float32 ``[S, 3, 2]`` segments, int32
+                 out_h, mode, sample_offset=(0.0, 0.0)):
+    """Check what the kernels take: float32 ``[S, 3, 2]`` segments, int32
     ``[S]`` owners and float32 ``[N, 2]`` offsets, contiguous on one CUDA
-    device, a finite ``s_px > 0``, sizes >= 0 and a mode of ``MODES``.
-    Returns ``(S, N, float32 s_px, top)``."""
+    device, a finite ``s_px > 0``, sizes >= 0, a mode of ``MODES`` and a
+    finite sample offset ``(ox, oy)``. Returns ``(S, N, float32 s_px, top,
+    float32 ox, float32 oy)``."""
     if flat_segments.dim() != 3 or flat_segments.shape[1:] != (3, 2):
         raise ValueError(f"flat_segments must be [S, 3, 2], got {tuple(flat_segments.shape)}")
     if inst_offsets.dim() != 2 or inst_offsets.shape[1] != 2:
@@ -52,6 +58,9 @@ def check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0, page_
         raise ValueError(f"s_px must be finite and > 0, got {s_px}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    ox, oy = (np.float32(v) for v in sample_offset)
+    if not (np.isfinite(ox) and np.isfinite(oy)):
+        raise ValueError(f"sample_offset must be finite, got {sample_offset}")
     top = page_h - 1 - band_y0
     if min(page_h, page_w, out_h) < 0 or max(page_w + 1, abs(top) + out_h, s, n) > _INT32_MAX:
         raise ValueError(f"bad page size {page_h}x{page_w}, band ({band_y0}, {out_h})")
@@ -61,28 +70,31 @@ def check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0, page_
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if not seg_inst_idx.device == inst_offsets.device == flat_segments.device:
         raise ValueError("flat_segments, seg_inst_idx and inst_offsets must be on one device")
-    return s, n, s_px, top
+    return s, n, s_px, top, ox, oy
 
 
 def direct_page(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0=0, *, page_h, page_w,
-                out_h=None, mode="fill"):
+                out_h=None, mode="fill", sample_offset=(0.0, 0.0)):
     """Rows ``[band_y0, band_y0 + out_h)`` of the page (all of it by
-    default): ``[out_h, page_w]``, int32 for ``mode="winding"``, uint8 for
-    ``"fill"`` (0/255) and ``"gray"`` (the debug gray). Same arguments and
-    result as ``page_ref.direct_page``; an owner index outside ``[0, N)``
-    adds nothing here and raises there."""
+    default) at the sample offset ``(ox, oy)``: ``[out_h, page_w]``, int32
+    for ``mode="winding"``, uint8 for ``"fill"`` (0/255) and ``"gray"``
+    (the debug gray). Same arguments and result as ``page_ref.direct_page``;
+    an owner index outside ``[0, N)`` adds nothing here and raises there."""
     oh = page_h if out_h is None else out_h
     if flat_segments.device.type == "cpu":
         return page_ref.direct_page(
             flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0, page_h=page_h,
-            page_w=page_w, out_h=oh, mode=mode)
-    s, n, s_px, top = check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px, band_y0,
-                                   page_h, page_w, oh, mode)
-    return launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, oh, page_w, mode)
+            page_w=page_w, out_h=oh, mode=mode, sample_offset=sample_offset)
+    s, n, s_px, top, ox, oy = check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px,
+                                           band_y0, page_h, page_w, oh, mode, sample_offset)
+    return launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, oh, page_w, mode,
+                  ox, oy)
 
 
-def launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, out_h, width, mode):
-    """Launch the kernel on inputs that ``check_inputs`` has passed."""
+def launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, out_h, width, mode,
+           ox=0.0, oy=0.0):
+    """Launch the single-sample kernel on inputs that ``check_inputs`` has
+    passed."""
     global launches
     dev = flat_segments.device
     dtype = torch.int32 if mode == "winding" else torch.uint8
@@ -98,9 +110,48 @@ def launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, out_h, wi
         err = lib.page(
             flat_segments.data_ptr(), seg_inst_idx.data_ptr(), inst_offsets.data_ptr(),
             s, n, float(s_px), top, out_h, width, MODES.index(mode), chunk, tile_w,
-            int(x_cull), hulls.data_ptr(), bucket.data_ptr(), out.data_ptr(), stream,
+            int(x_cull), float(ox), float(oy), hulls.data_ptr(), bucket.data_ptr(),
+            out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"page kernel launch failed: cudaError_t {err}")
     launches += 1
+    return out
+
+
+def direct_page_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, *, page_h, page_w):
+    """The 2 x 2 MSAA page, uint8 ``[page_h, page_w]`` (0, 63, 127, 191,
+    255): ``page_ref.direct_page_msaa``'s arguments and result, in one
+    launch of the MSAA kernel on a CUDA device."""
+    if flat_segments.device.type == "cpu":
+        return page_ref.direct_page_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px,
+                                         page_h=page_h, page_w=page_w)
+    s, n, s_px, _, _, _ = check_inputs(flat_segments, seg_inst_idx, inst_offsets, s_px, 0,
+                                       page_h, page_w, page_h, "fill")
+    return launch_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, page_h, page_w)
+
+
+def launch_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, height, width):
+    """Launch the MSAA kernel on inputs that ``check_inputs`` has passed;
+    its four int32 bucket planes are scratch of this call."""
+    global msaa_launches
+    dev = flat_segments.device
+    out = torch.empty((height, width), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("page")
+    chunk, tile_w, x_cull = page_ref.route(width)
+    (oy0, (ox0, ox1)), (oy1, _) = page_ref.msaa_lattice()  # both rows share the x pair
+    hulls = torch.empty((-(-s // chunk), 4), dtype=torch.float32, device=dev)
+    bucket = torch.empty((4, height, width + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.page_msaa(
+            flat_segments.data_ptr(), seg_inst_idx.data_ptr(), inst_offsets.data_ptr(),
+            s, n, float(s_px), height, width, chunk, tile_w, int(x_cull), ox0, ox1, oy0, oy1,
+            hulls.data_ptr(), bucket.data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"page MSAA kernel launch failed: cudaError_t {err}")
+    msaa_launches += 1
     return out

@@ -1,20 +1,20 @@
 """Page rendering: a text layout -> a whole pixel page, in one kernel launch.
 
 The port of the direct path of ``fontrx/scene/page.py::PageRenderer``
-(``render_direct``, lines 418-447 and 508-517, and ``_compact_instances``,
-lines 519-554). Every instance's live em-space segments are concatenated
-once per layout, with an owning instance per segment; a frame computes the
-instances' page-pixel offsets for its view on the host and rasters the page
-from that stream with ``kernels.page`` (the CUDA page kernel on a CUDA
-device, its plain version on the CPU).
+(``render_direct``, lines 418-517, ``_compact_instances``, lines 519-554,
+and ``to_rgba``, lines 559-577). Every instance's live em-space segments
+are concatenated once per layout, with an owning instance per segment; a
+frame computes the instances' page-pixel offsets for its view on the host
+and rasters the page from that stream with ``kernels.page`` (the CUDA page
+kernels on a CUDA device, their plain versions on the CPU): the fill, the
+debug gray, a band, or the 2 x 2 MSAA page.
 
 Left out: the shape buckets of the reference's stream (2048 segments) and
 offsets (256 instances), which only keep XLA's shapes stable (the one trace
 their padding leaves on the page, the padding point in the hull of a last
 chunk that is not full, is part of ``kernels.page_ref``'s function);
-composite mode (``render``, ``rasterize_glyphs``, ``GlyphTileCache``),
-``render_color`` and ``to_rgba``. ``msaa=True`` raises
-``NotImplementedError``: the page MSAA kernel is not ported yet.
+composite mode (``render``, ``rasterize_glyphs``, ``GlyphTileCache``;
+ROADMAP item 8) and ``render_color`` (item 13).
 """
 
 from __future__ import annotations
@@ -69,19 +69,42 @@ class PageRenderer:
         band: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """One frame: uint8 ``[height, width]`` on the renderer's device, the
-        0/255 fill, or with ``debug`` the winding gray
-        ``clip(w * 20 + 100, 0, 255)``. ``band=(y0, rows)`` renders page
-        rows ``[y0, y0 + rows)`` only, equal to the same rows of the whole
-        page. One launch of the page kernel on a CUDA device."""
-        if msaa:
-            raise NotImplementedError(
-                "render_direct(msaa=True): the page MSAA kernel (K8) is not ported yet")
+        0/255 fill, with ``debug`` the winding gray ``clip(w * 20 + 100, 0,
+        255)``, or with ``msaa`` (which wins over ``debug``) the 2 x 2 MSAA
+        page (0, 63, 127, 191, 255). ``band=(y0, rows)`` renders page rows
+        ``[y0, y0 + rows)`` of the fill only, equal to the same rows of the
+        whole page at the first view. One launch of a page kernel on a CUDA
+        device."""
         y0, rows = (0, self.height) if band is None else band
         if len(self.layout.instances) == 0:
             return torch.zeros((rows, self.width), dtype=torch.uint8, device=self.device)
+        if band is not None and (msaa or debug):
+            raise ValueError("band renders are fill-only")
+        if msaa:
+            return page.direct_page_msaa(*self.page_inputs(view), page_h=self.height,
+                                         page_w=self.width)
         return page.direct_page(
             *self.page_inputs(view), y0, page_h=self.height, page_w=self.width,
             out_h=rows, mode="gray" if debug else "fill")
+
+    @staticmethod
+    def to_rgba(page_u8, transparent: bool = False) -> np.ndarray:
+        """A grayscale page (uint8 ``[H, W]``, a tensor or an array) as
+        uint8 RGBA ``[H, W, 4]`` on the host: gray in R, G and B, and alpha
+        the coverage with ``transparent`` (the reference's
+        transparent-framebuffer mode, Ctrl+T), else 255 (opaque over
+        black)."""
+        if torch.is_tensor(page_u8):
+            page_u8 = page_u8.cpu().numpy()
+        if page_u8.ndim == 3:
+            raise NotImplementedError(
+                "to_rgba of an [H, W, 3] colour page: render_color is not ported (ROADMAP "
+                "item 13)")
+        a = page_u8.astype(np.uint8)
+        rgba = np.empty(a.shape + (4,), np.uint8)
+        rgba[..., :3] = a[..., None]
+        rgba[..., 3] = a if transparent else 255
+        return rgba
 
     def _compact_instances(self):
         """Every instance's live segments concatenated, padding dropped,

@@ -16,7 +16,7 @@ import torch
 
 from fontrx_torch.bound import (
     FP32_OPS_PER_S, HBM_BYTES_PER_S, PAGE_TRANSFORM, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms,
-    page_bytes, page_work, sdf_pairs, sdf_work, solve_work)
+    page_bytes, page_msaa_bytes, page_msaa_work, page_work, sdf_pairs, sdf_work, solve_work)
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import page_ref
@@ -150,11 +150,12 @@ def test_page_bytes_by_hand():
     assert page_bytes(5, 1, 16, 8, "fill") == page_bytes(5, 1, 16, 8, "gray") == 5 * 28 + 8 + 128
 
 
-def _scalar_solved(q, top, rows, page_w):
-    """The pairs the page solves, one chunk at a time: per 128-row strip,
-    those of the chunks (16 segments below a padded width of 1024, else 32)
-    whose hull, widened by 1 px, meets the strip; a last chunk that is not
-    full holds the point (-1e7, -1e7)."""
+def _scalar_solved(q, top, rows, page_w, oy=0.0, x_first=0.0):
+    """The pairs the page solves, one chunk at a time: per 128-row strip
+    (rows at ``y = f32(top - r) + oy``), those of the chunks (16 segments
+    below a padded width of 1024, else 32) whose hull, widened by 1 px,
+    meets the strip, and from 1024 reaches ``x_first``; a last chunk that is
+    not full holds the point (-1e7, -1e7)."""
     pw = -(-page_w // 128) * 128
     chunk, x_cull = (32, True) if pw >= 1024 else (16, False)
     solved = np.zeros((len(q), rows), bool)
@@ -164,25 +165,26 @@ def _scalar_solved(q, top, rows, page_w):
             pts = np.concatenate([pts, np.full((1, 2), -1e7, f32)])
         ymin, ymax, xmax = f32(pts[:, 1].min()), f32(pts[:, 1].max()), f32(pts[:, 0].max())
         for r in range(rows):
-            y_hi = f32(top - r // 128 * 128)
-            solved[c0 : c0 + chunk, r] = (ymax + f32(1) >= y_hi - f32(127)
+            y_hi = f32(top - r // 128 * 128) + f32(oy)
+            y_lo = f32(top - r // 128 * 128 - 127) + f32(oy)
+            solved[c0 : c0 + chunk, r] = (ymax + f32(1) >= y_lo
                                           and ymin - f32(1) <= y_hi
-                                          and (not x_cull or xmax + f32(1) >= f32(0)))
+                                          and (not x_cull or xmax + f32(1) >= f32(x_first)))
     return solved
 
 
-def _scalar_page_work(q, top, rows, page_w):
+def _scalar_page_work(q, top, rows, page_w, oy=0.0, x_first=0.0):
     """The page's needed pairs one at a time: solved, and in the hull or
     crossed."""
     ops = pairs = crossings = 0
     q = np.asarray(q, f32).reshape(-1, 6)
-    solved = _scalar_solved(q, top, rows, page_w)
+    solved = _scalar_solved(q, top, rows, page_w, oy, x_first)
     for p, solved_rows in zip(q, solved):
         p0y, p1y, p2y = f32(p[1]), f32(p[3]), f32(p[5])
         a = p0y - f32(2) * p1y + p2y
         ops += PAGE_TRANSFORM + 9 + (4 if a != 0 else 2)
         for r in np.nonzero(solved_rows)[0]:
-            cy = f32(top - r)
+            cy = f32(top - r) + f32(oy)
             roots, extra = 0, 0
             if a != 0:
                 delta = cy * a + p1y * p1y - p0y * p2y
@@ -219,6 +221,46 @@ def test_page_matches_the_scalar_program(zoom):
     # the same crossings as the glyph path's count at these anchors
     assert solve_work(q.reshape(1, -1, 3, 2), [len(q)], [h - 1], 1.0, height=h,
                       row_offsets=[0.0])[1] == crossings
+
+
+@pytest.mark.parametrize("w", [96, 1100])  # the v2 route's and K7's chunks
+@pytest.mark.parametrize("zoom", [0.0, -0.5])
+def test_page_msaa_matches_the_scalar_program(zoom, w):
+    """Per oy, the needed pairs of one lattice, counted one at a time, with
+    two placements per crossing; four tests per pixel; the constants once."""
+    from fontrx_torch.scene.layout import layout_text
+    from fontrx_torch.scene.page import PageRenderer
+    from fontrx_torch.scene.transform import ViewTransform
+
+    font = Font.open(FONT)
+    h = 40
+    pr = PageRenderer(font, layout_text(font, "Ag"), w, h, "cpu")
+    inputs = pr.page_inputs(ViewTransform.init(2048, w, h).zoomed(zoom, (-0.2, 0.1)))
+    q = page_ref.transform_segments(*inputs).reshape(-1, 6).numpy()
+    ops = pairs = crossings = 0
+    with np.errstate(all="ignore"):
+        for oy, oxs in page_ref.msaa_lattice():
+            o, p, c = _scalar_page_work(q, h - 1, h, w, oy, min(oxs))
+            ops, pairs, crossings = ops + o + 2 * c, pairs + p, crossings + c
+        constants = _scalar_page_work(q, h - 1, 0, w)[0]
+    got = page_msaa_work(*inputs, page_h=h, page_w=w)
+    assert got == (ops - constants + 4 * w * h, pairs, crossings)
+    assert crossings > 0
+    # each lattice counts as the single-sample page at its offset
+    assert pairs == sum(page_work(*inputs, page_h=h, page_w=w, sample_offset=(min(oxs), oy))[1]
+                        for oy, oxs in page_ref.msaa_lattice())
+
+
+def test_page_msaa_bytes_by_hand():
+    assert page_msaa_bytes(5, 1, 16, 8) == 5 * 28 + 8 + 16 * 8
+
+
+def test_page_at_a_sample_offset_by_hand():
+    # the square at x 1..5, y 2..12; rows at y = 15.25 .. 0.25: each upright
+    # edge's hull holds rows y = 11.25 .. 2.25, and it crosses those 10
+    ops, pairs, crossings = page_work(*_page(SQUARE, (1.0, 2.0)), page_h=16, page_w=8,
+                                      sample_offset=(0.5, 0.25))
+    assert (pairs, crossings) == (2 * 10, 2 * 10)
 
 
 def test_page_drops_strays_where_the_chunk_misses_the_strip():

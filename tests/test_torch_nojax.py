@@ -52,6 +52,7 @@ MODULES = [
     "fontrx_torch.scene.transform",
     "fontrx_torch.scene.layout",
     "fontrx_torch.scene.page",
+    "fontrx_torch.scene.interactive",
     "chip_smoke",
 ]
 

@@ -414,10 +414,6 @@ class TestWrapper:
             page.launch(seg, idx, offs, s_px, len(seg), 1, 63, 64, 64, "fill")
         assert page.launches == before
 
-    def test_msaa_is_not_ported(self, font):
-        with pytest.raises(NotImplementedError, match="K8"):
-            renderer(font, "v2").render_direct(init_view(font, "v2"), msaa=True)
-
     def test_renderer_has_no_default_device(self, font):
         with pytest.raises(TypeError):
             PageRenderer(font, layout_text(font, "a"), 8, 8)
