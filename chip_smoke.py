@@ -1,6 +1,6 @@
-"""Drive fontrx_torch's glyph fill, tile coverage, SDF atlas, Loop-Blinn
-atlas, direct page and interactive MSAA paths once on one CUDA card, and
-check them.
+"""Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
+atlas, Loop-Blinn atlas, direct page and interactive MSAA paths once on one
+CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -21,6 +21,11 @@ just after:
   3. the README quick start on 'A' at 256 px: ``winding_glyph`` -> ``fill``
      -> QOI encode -> decode;
   4. ``fontrx_torch.entry.entry()``'s raster step on its example batch;
+- **window-packed atlas** (K3): ``RasterEngine.pack_windows`` then
+  ``winding_batch(windows=...)`` on cjk64's batch at 64 and at 32 px and on
+  the reference's CJK benchmark batch (``benchmarks/cjk.py:112-160``: 1000
+  glyphs x 288 segments, seed 7, x-sorted per glyph) at 64 and at 32 px:
+  four launches of ``winding_windows()``, none of ``winding()``;
 - **tile coverage**: 2 x 2 supersampled coverage of both atlases through
   ``RasterEngine.coverage_batch``, then ``coverage_to_gray``;
 - **SDF atlas** (BASELINE config 4): signed distance fields (8 px spread)
@@ -47,7 +52,8 @@ just after:
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
-against the plain version on the CPU), the atlases against the NumPy oracle
+against the plain version on the CPU; the windowed atlases also against
+``winding.cu`` on the unwindowed batch), the atlases against the NumPy oracle
 (``contract=False``; for the SDF, its sign) on sampled glyphs, the quick
 start against the oracle's fill, the Loop-Blinn fill against the
 winding fill at tie-free sample offsets on the glyphs of the JAX package's
@@ -83,10 +89,11 @@ from itertools import repeat
 import numpy as np
 import torch
 
+from fontrx_torch.bench.cjk import UPEM, make_batch
 from fontrx_torch.bound import (
     bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes, page_msaa_work,
-    page_work, sdf_work, solve_work)
-from fontrx_torch.convert import grid_anchors, packed_to_device, triangles_to_device
+    page_work, sdf_work, solve_work, window_bytes, window_work)
+from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
@@ -98,7 +105,7 @@ from fontrx_torch.kernels import (
     _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, page, page_ref, sdf,
     sdf_ref, winding, winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
-from fontrx_torch.pack.segments import glyph_segments, pack_glyph
+from fontrx_torch.pack.segments import glyph_segments, pack_glyph, xsort_segments
 from fontrx_torch.scene.interactive import InteractiveSession
 from fontrx_torch.scene.layout import layout_text
 from fontrx_torch.scene.page import PageRenderer
@@ -120,6 +127,13 @@ SAMPLES = 2                  # k of the k x k coverage (the reference's MSAA wor
 # for 1000 CJK glyphs at 32/64px", beside the ASCII headline atlas
 SDF_ATLASES = (("ascii256", "ascii256", 256), ("cjk64", "cjk64", 64), ("cjk32", "cjk64", 32))
 SDF_ORACLE_STRIDE = 52
+# the window-packed atlas (K3): cjk64's batch at 64 and 32 px, and the
+# reference's CJK benchmark batch (benchmarks/cjk.py:112-160, atlas(): 1000
+# glyphs x 288 segments, seed 7, x-sorted per glyph, min_x 0, max_y size - 1)
+# at 64 and 32 px
+WINDOW_SIZES = (64, 32)
+SYNTH_GLYPHS, SYNTH_SEGMENTS = 1000, 288
+WINDOW_ORACLE_STRIDE = 52
 # BASELINE config 3 (benchmarks/configs.py:138-197): the printable ASCII
 # glyphs of DejaVu Sans, triangulated, at 128 px on 128 x 128 tiles
 LB_CHARS = list(range(33, 127))
@@ -162,6 +176,7 @@ def reset_counts() -> None:
     for module in KERNELS:
         module.launches = 0
     page.msaa_launches = 0
+    winding.windows_launches = 0
 
 
 def check(ok: bool, what: str) -> None:
@@ -407,6 +422,39 @@ def main() -> None:
     print(f"winding path: {winding_launches} winding kernel launches, "
           f"{coverage.launches} coverage")
 
+    # --- window-packed atlas path (K3), once ----------------------------------
+    cjk_batch = atlases["cjk64"][0]
+    cjk_upem = Font.open(CJK).info.units_per_em
+    synth = np.stack([xsort_segments(s) for s in make_batch(SYNTH_GLYPHS, SYNTH_SEGMENTS)])
+    win_batches = {}
+    for size in WINDOW_SIZES:
+        grids = [RasterGrid.fixed_tile(tuple(box), size, cjk_upem, size)
+                 for box in np.asarray(cjk_batch.boxes)]
+        win_batches[f"cjk{size}"] = (cjk_batch.segments, *grid_anchors(grids), size)
+        win_batches[f"synth{size}"] = (
+            synth, np.zeros(SYNTH_GLYPHS, np.int32), np.full(SYNTH_GLYPHS, size - 1, np.int32),
+            float(np.float32(size / UPEM)), size)
+    windows = {}
+    for name, (segs, min_x, max_y, scale, size) in win_batches.items():
+        t0 = time.perf_counter()
+        windows[name] = engine.pack_windows(segs, min_x, max_y, scale, height=size)
+        torch.cuda.synchronize()
+        pack_s[f"{name}_windows"] = time.perf_counter() - t0
+        check(windows[name] is not None, f"{name}: pack_windows packed nothing")
+    reset_counts()
+    win_outputs = {}
+    for name, (segs, min_x, max_y, scale, size) in win_batches.items():
+        win_outputs[name] = engine.winding_batch(segs, min_x, max_y, scale, height=size,
+                                                 width=size, windows=windows[name])
+    torch.cuda.synchronize()
+    windows_launches = winding.windows_launches
+    check(windows_launches == len(win_batches),
+          f"the windowed path launched winding_windows() {windows_launches} times")
+    check(winding.launches == 0, "the windowed path launched winding()")
+    print(f"windowed path: {windows_launches} winding_windows() launches, {winding.launches} "
+          "winding(); host pack_windows (to the card included): "
+          + ", ".join(f"{name} {pack_s[f'{name}_windows']:.3f} s" for name in win_batches))
+
     # --- tile coverage path, once ------------------------------------------
     reset_counts()
     cov_outputs = {}
@@ -513,9 +561,9 @@ def main() -> None:
 
     # --- checks ------------------------------------------------------------
     record = {"winding": {}, "coverage": {}, "sdf": {}, "loopblinn": {}, "page": {},
-              "page_msaa": {}}
+              "page_msaa": {}, "winding_windows": {}}
     max_err = {"winding": 0, "coverage": 0.0, "sdf": 0.0, "loopblinn": 0, "page": 0,
-               "page_msaa": 0}
+               "page_msaa": 0, "winding_windows": 0}
     for name, (batch, grids, size) in atlases.items():
         args = packed_to_device(batch, grids, dev)
         b = len(grids)
@@ -588,6 +636,71 @@ def main() -> None:
                   f"call; bound {b_ms:.4f} ms ({bound_by}; {ops} FP32 ops, {crossings} "
                   f"crossings); plain version "
                   f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)")
+
+    for name, (segs, min_x, max_y, scale, size) in win_batches.items():
+        wins, out = windows[name], win_outputs[name]
+        b = len(segs)
+        seg_d, min_x_d, max_y_d, scale = to_device(segs, min_x, max_y, scale, dev)
+        wargs = (wins.segments_win, wins.counts, min_x_d, max_y_d, scale)
+        wkw = dict(height=size, width=size, win_rows=wins.win_rows)
+        ref = winding_ref.winding_windows_batch(*wargs, **wkw)
+        check(out.shape == ref.shape == (b, size, size) and out.dtype == torch.int32,
+              f"{name} windowed shape")
+        diff = int((out != ref).sum())
+        max_err["winding_windows"] = max(max_err["winding_windows"],
+                                         int((out - ref).abs().max()))
+        check(diff == 0, f"{name}: {diff} pixels differ from the plain windowed version")
+        full = winding.winding_batch(seg_d, min_x_d, max_y_d, scale, height=size, width=size)
+        diff = int((out != full).sum())
+        check(diff == 0, f"{name}: {diff} pixels differ from winding.cu")
+        out_host = out.cpu().numpy()
+        sampled = range(0, b, WINDOW_ORACLE_STRIDE)
+        mism = 0
+        for i in sampled:
+            xs = (min_x[i] + np.arange(size)).astype(np.float32) / np.float32(scale)
+            ys = (max_y[i] - np.arange(size)).astype(np.float32) / np.float32(scale)
+            wo = oracle.winding_at(segs[i], xs[None, :], ys[:, None], contract=False)
+            mism += int((wo != out_host[i]).sum())
+        check(mism == 0, f"{name}: {mism} windowed pixels differ from the oracle")
+
+        counts = wins.counts.cpu().numpy()
+        rows = [min(wins.win_rows, size - w * wins.win_rows) for w in range(wins.n_windows)]
+        pairs = int((counts * np.array(rows)).sum())
+        live = int((np.asarray(segs) != 0).any(axis=(2, 3)).sum())
+        nbytes = window_bytes(counts, size, size)
+        ops, crossings = window_work(wins.segments_win.cpu().numpy(), counts, max_y, scale,
+                                     **wkw)
+        b_ms, bound_by = bound_ms(nbytes, ops)
+
+        def kernel():
+            return winding.winding_windows_batch(*wargs, **wkw)
+
+        kernel_ms = graph_ms(kernel)
+        call_ms = cuda_ms(kernel, inner=10)
+        engine_ms = cuda_ms(lambda: engine.winding_batch(
+            segs, min_x, max_y, scale, height=size, width=size, windows=wins), inner=10)
+        full_ms = graph_ms(lambda: winding.winding_batch(seg_d, min_x_d, max_y_d, scale,
+                                                         height=size, width=size))
+        plain_ms = cuda_ms(lambda: winding_ref.winding_windows_batch(*wargs, **wkw), inner=1,
+                           reps=5, warmup=1)
+        record["winding_windows"][name] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms, engine_call_ms=engine_ms,
+            bound_ms=b_ms, bound_by=bound_by, bound_bytes=nbytes, bound_ops=ops,
+            crossings=crossings, win_rows=wins.win_rows, n_windows=wins.n_windows, cap=wins.cap,
+            copies=int(counts.sum()), live_segments=live, pairs=pairs,
+            winding_cu_pairs=live * size, winding_cu_ms=full_ms,
+            host_pack_windows_s=pack_s[f"{name}_windows"])
+        print(f"{name} windowed {size}x{size} ({wins.win_rows}-row windows, cap {wins.cap}): 0 "
+              f"of {out.numel()} pixels differ from the plain version and from winding.cu; 0 of "
+              f"{len(sampled) * size * size} differ from the oracle ({len(sampled)} glyphs); "
+              f"{int(counts.sum())} copies of {live} live segments; (segment, row) pairs "
+              f"{pairs}, {pairs / (live * size):.3f} of winding.cu's {live * size}")
+        print(f"{name} winding_windows: kernel {kernel_ms:.4f} ms on the device "
+              f"({b / kernel_ms * 1e3:.0f} glyphs/s), {call_ms:.4f} ms per wrapper call, "
+              f"{engine_ms:.4f} ms per engine call; winding.cu on the same batch "
+              f"{full_ms:.4f} ms ({kernel_ms / full_ms:.2f}x); bound {b_ms:.5f} ms ({bound_by}; "
+              f"{nbytes} B, {ops} FP32 ops, {crossings} crossings); plain version "
+              f"{plain_ms:.3f} ms")
 
     for name, (batch, grids, size) in sdf_atlases.items():
         args = packed_to_device(batch, grids, dev)
@@ -979,6 +1092,8 @@ def main() -> None:
                  main_atlas="config5"),
         entry_of("page_msaa", "fontrx/kernels/winding_page.py:537", msaa_launches,
                  main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
+        entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,
+                 main_atlas="cjk64", source="fontrx_torch/csrc/winding.cu"),
     ], "host_pack_s": pack_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

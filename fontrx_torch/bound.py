@@ -50,6 +50,12 @@ depend on any tiling (``loopblinn_work``). Its bytes are a triangle's 12
 floats and class where it can draw, only the class of a padding row, the
 anchors and one byte per pixel of output (``loopblinn_bytes``).
 
+The windowed winding (``winding_windows()`` in ``csrc/winding.cu``, K3)
+needs the root solves of each window's live copies on that window's rows
+only, as the stream defines its function, one placement per crossing and
+one sum per pixel (``window_work``); its bytes are the live copies, the
+window counts, the anchors and the int32 output (``window_bytes``).
+
 The direct page render (``csrc/page.cu``) needs, per segment of the
 em-space stream, its transform to page pixels (a multiply-add per
 coordinate, counted as two operations) and its constants as above; per
@@ -82,15 +88,16 @@ FP32_OPS_PER_S = 67e12
 f32 = np.float32
 
 
-def solve_work(segments, seg_counts, max_y, scale, *, height, row_offsets, columns=1):
+def solve_work(segments, seg_counts, max_y, scale, *, height, row_offsets, columns=1, row0=0):
     """FP32 operations and crossings of the root solves these inputs need.
 
     ``segments`` float32 ``[B, S, 3, 2]`` with ``seg_counts[b]`` live
     segments in glyph ``b``; ``max_y`` int ``[B]``; ``scale`` the shared
-    float32 scale. Sample row ``y`` of glyph ``b`` at offset ``oy`` of
-    ``row_offsets`` lies at em-space ``(f32(max_y[b] - y) + oy) / scale``,
-    as in the kernels. ``columns`` is the number of sub-columns each
-    crossing is placed among. Returns ``(ops, crossings)``.
+    float32 scale. Sample row ``y`` (``row0 <= y < row0 + height``) of glyph
+    ``b`` at offset ``oy`` of ``row_offsets`` lies at em-space
+    ``(f32(max_y[b] - y) + oy) / scale``, as in the kernels. ``columns`` is
+    the number of sub-columns each crossing is placed among. Returns
+    ``(ops, crossings)``.
     """
     seg = np.asarray(segments, f32)
     counts = np.asarray(seg_counts, np.int64)
@@ -101,7 +108,7 @@ def solve_work(segments, seg_counts, max_y, scale, *, height, row_offsets, colum
         for b in range(seg.shape[0]):
             q = seg[b, : counts[b]].reshape(-1, 6)
             p0y, p1y, p2y = (q[:, i, None] for i in (1, 3, 5))
-            rows = (int(max_y[b]) - np.arange(height)).astype(f32)
+            rows = (int(max_y[b]) - (row0 + np.arange(height))).astype(f32)
             cy = ((rows[:, None] + offsets[None, :]) / scale).reshape(1, -1)
 
             a = p0y - f32(2) * p1y + p2y
@@ -127,6 +134,45 @@ def solve_work(segments, seg_counts, max_y, scale, *, height, row_offsets, colum
             ops += 4 * t.size + 4 * roots
             crossings += roots
     return ops + crossings * columns, crossings
+
+
+# bytes of the window-packed stream: a live copy's six float32 coordinates,
+# a window's int32 count, a glyph's two int32 anchors, an int32 pixel
+WINDOW_COPY_BYTES = 6 * 4
+WINDOW_COUNT_BYTES = 4
+WINDOW_ANCHOR_BYTES = 2 * 4
+
+
+def window_work(segments_win, counts, max_y, scale, *, height, width, win_rows,
+                sample_offset=(0.0, 0.0)):
+    """FP32 operations and crossings of the windowed winding (K3's function,
+    ``winding_ref.winding_windows_batch``) on these inputs: each window's
+    live copies solved on its rows below ``height`` only, as ``solve_work``
+    counts a solve, one placement per crossing and one sum per pixel.
+    ``segments_win`` float32 ``[B, n_windows * cap, 3, 2]``, ``counts``
+    ``[B, n_windows]``. Returns ``(ops, crossings)``."""
+    seg = np.asarray(segments_win, f32)
+    counts = np.asarray(counts)
+    b, n_windows = counts.shape
+    cap = seg.shape[1] // max(n_windows, 1)
+    ops = crossings = 0
+    for w in range(n_windows):
+        r0, r1 = w * win_rows, min((w + 1) * win_rows, height)
+        if r0 >= r1:
+            continue
+        o, c = solve_work(seg[:, w * cap : (w + 1) * cap], counts[:, w], max_y, scale,
+                          height=r1 - r0, row_offsets=[sample_offset[1]], row0=r0)
+        ops, crossings = ops + o, crossings + c
+    return ops + b * height * width, crossings
+
+
+def window_bytes(counts, height: int, width: int) -> int:
+    """Bytes the windowed winding must move: 24 B per live copy, 4 B per
+    window count, 8 B of anchors per glyph and 4 B per output pixel."""
+    counts = np.asarray(counts)
+    b, n_windows = counts.shape
+    return (int(counts.sum()) * WINDOW_COPY_BYTES + b * n_windows * WINDOW_COUNT_BYTES
+            + b * WINDOW_ANCHOR_BYTES + b * height * width * 4)
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:

@@ -1,13 +1,13 @@
 """Raster engine: batched winding maps, fills, k x k coverage and signed
 distance fields on one device.
 
-The port of ``fontrx.engine.raster.RasterEngine``'s winding, tile coverage
-and SDF atlas paths. Inputs go to the engine's device; a CUDA device runs
-the CUDA kernels and the CPU runs their plain PyTorch versions
-(``fontrx_torch.kernels.winding``, ``.coverage`` and ``.sdf``). One kernel
-of each serves every tile size, so the TPU's split at 128 px, its padding
-to 128-row strips, its per-launch batch cap, its choice between coverage
-strategies and its flat/tiled SDF routes are gone.
+The port of ``fontrx.engine.raster.RasterEngine``'s winding, window-packed
+atlas, tile coverage and SDF atlas paths. Inputs go to the engine's device;
+a CUDA device runs the CUDA kernels and the CPU runs their plain PyTorch
+versions (``fontrx_torch.kernels.winding``, ``.coverage`` and ``.sdf``).
+One kernel of each serves every tile size, so the TPU's split at 128 px,
+its padding to 128-row strips, its per-launch batch cap, its choice between
+coverage strategies and its flat/tiled SDF routes are gone.
 """
 
 from __future__ import annotations
@@ -21,6 +21,11 @@ from fontrx_torch.convert import grid_anchors, to_device
 from fontrx_torch.kernels import coverage, coverage_ref, sdf, winding
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import PackedBatch, pack_glyphs
+from fontrx_torch.pack.windows import SAMPLE_MARGIN, pack_windows, win_rows_for
+
+# the reference's single-tile route: tiles of at most this many rows and
+# columns may take a window-packed stream (raster.py:99-110, 175, 196)
+DENSE_MAX = 128
 
 
 def _fixed_tiles(boxes, font_size: int, units_per_em: int, tile: int) -> list[RasterGrid]:
@@ -28,6 +33,22 @@ def _fixed_tiles(boxes, font_size: int, units_per_em: int, tile: int) -> list[Ra
         RasterGrid.fixed_tile(tuple(box), font_size, units_per_em, tile)
         for box in np.asarray(boxes)
     ]
+
+
+@dataclass(frozen=True)
+class DenseWindows:
+    """A window-packed segment stream from ``RasterEngine.pack_windows``,
+    on the engine's device: window ``w`` of glyph ``b`` holds
+    ``counts[b, w]`` copies of the segments that can reach its rows ``[w *
+    win_rows, (w + 1) * win_rows)`` (``fontrx_torch.pack.windows``). Pass
+    it to ``winding_batch(windows=...)`` with the same anchors and scale."""
+
+    segments_win: torch.Tensor  # float32 [B, n_windows * cap, 3, 2]
+    counts: torch.Tensor        # int32 [B, n_windows]
+    n_windows: int
+    cap: int
+    win_rows: int
+    height: int
 
 
 @dataclass
@@ -40,13 +61,55 @@ class RasterEngine:
     def __post_init__(self):
         self.device = torch.device(self.device)
 
+    def pack_windows(
+        self, segments, min_x, max_y, scale, *, height: int,
+    ) -> DenseWindows | None:
+        """The window-packed stream of a small-tile atlas batch, packed on
+        the host and moved to the engine's device; ``None`` where the
+        reference packs none: tiles taller than 128 rows, or fewer than 128
+        segment slots a glyph. One pack serves every sample offset with
+        ``|oy| <= 1``."""
+        segments = torch.as_tensor(segments).cpu().numpy()
+        if height > DENSE_MAX or segments.shape[1] < 128:
+            return None
+        win_rows = win_rows_for(height)
+        win, counts, n_windows, cap = pack_windows(
+            segments, np.asarray(max_y), float(np.float32(scale)), height, win_rows=win_rows)
+        return DenseWindows(
+            segments_win=torch.from_numpy(win).to(self.device),
+            counts=torch.from_numpy(counts).to(self.device),
+            n_windows=n_windows, cap=cap, win_rows=win_rows, height=height)
+
     def winding_batch(
         self, segments, min_x, max_y, scale, *, height: int, width: int,
-        sample_offset=(0.0, 0.0),
+        sample_offset=(0.0, 0.0), windows: DenseWindows | None = None,
     ) -> torch.Tensor:
         """Batched winding maps: int32 ``[B, height, width]`` on the
         engine's device. ``segments`` ``[B, S, 3, 2]`` and the anchors
-        ``min_x``/``max_y`` ``[B]`` may be NumPy arrays or tensors."""
+        ``min_x``/``max_y`` ``[B]`` may be NumPy arrays or tensors.
+
+        ``windows`` (from ``pack_windows`` over the same batch, anchors and
+        scale) routes a tile of at most 128 x 128 packed for this height
+        through the window-packed kernel, which reads the stream and not
+        ``segments``; any other call takes the unwindowed kernel, as the
+        reference routes it. The stream's rows carry a margin of
+        ``SAMPLE_MARGIN`` pixels, so a windowed call takes ``|oy|`` up to
+        that margin."""
+        if (windows is not None and windows.height == height
+                and height <= DENSE_MAX and width <= DENSE_MAX):
+            if windows.segments_win.shape[0] != len(segments):
+                raise ValueError(f"windows were packed for {windows.segments_win.shape[0]} "
+                                 f"glyphs, not {len(segments)}")
+            if not abs(float(sample_offset[1])) <= SAMPLE_MARGIN:
+                raise ValueError(f"sample offset y {sample_offset[1]} is beyond the pack's "
+                                 f"{SAMPLE_MARGIN} px margin")
+            _, min_x, max_y, scale = to_device(
+                windows.segments_win, min_x, max_y, scale, self.device)
+            return winding.winding_windows_batch(
+                windows.segments_win, windows.counts, min_x, max_y, scale,
+                height=height, width=width, win_rows=windows.win_rows,
+                sample_offset=sample_offset,
+            )
         segments, min_x, max_y, scale = to_device(
             segments, min_x, max_y, scale, self.device)
         return winding.winding_batch(

@@ -34,13 +34,24 @@ NVCC_FLAGS = (
 
 # library -> the C functions it exports -> (restype, argtypes)
 _SIGNATURES = {
-    "winding": {"winding": (
-        ctypes.c_int,
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
-         ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
-         ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
-    )},
+    "winding": {
+        "winding": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y
+             ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
+             ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+        ),
+        "winding_windows": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p,                    # seg, counts
+             ctypes.c_void_p, ctypes.c_void_p,                    # min_x, max_y
+             ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, nw, cap, win_rows
+             ctypes.c_int, ctypes.c_int,                          # H, W
+             ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+        ),
+    },
     "coverage": {"coverage": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # seg, min_x, max_y

@@ -142,3 +142,44 @@ def winding_batch(
         chunk = segments[:, s0 : s0 + step, None, None]  # [B, C, 1, 1, 3, 2]
         out += winding_contrib(chunk, cxb, cyb).sum(dim=1, dtype=torch.int32)
     return out
+
+
+def winding_windows_batch(
+    segments_win, counts, min_x, max_y, scale, *, height, width, win_rows,
+    sample_offset=(0.0, 0.0),
+):
+    """Winding maps from a window-major stream (``pack.windows``): the
+    function of K3, ``winding_dense.py::winding_dense_win_batch``.
+
+    - ``segments_win``: float32 ``[B, n_windows * cap, 3, 2]``
+    - ``counts``: int32 ``[B, n_windows]``, the live copies of each window
+    - ``min_x``, ``max_y``: int32 ``[B]``; ``scale`` and ``sample_offset``
+      as in ``winding_batch``
+    -> int32 ``[B, height, width]``.
+
+    Window ``w``'s first ``counts[b, w]`` copies are solved on its rows
+    ``[w * win_rows, (w + 1) * win_rows)`` that lie below ``height`` and on
+    no other row. A root that the float program finds on a row outside a
+    segment's windows is therefore dropped, as K3 drops it.
+    """
+    b, n_windows = counts.shape
+    cap = segments_win.shape[1] // max(n_windows, 1)
+    cx, cy = sample_coords(
+        min_x, max_y, scale, height=height, width=width, sample_offset=sample_offset,
+    )
+    cxb = cx[:, None, None, :]  # [B, 1, 1, W]
+    out = torch.zeros((b, height, width), dtype=torch.int32, device=segments_win.device)
+    slot = torch.arange(cap, device=segments_win.device)
+    for w in range(n_windows):
+        r0, r1 = w * win_rows, min((w + 1) * win_rows, height)
+        if r0 >= r1:
+            continue
+        n = int(counts[:, w].max()) if b else 0
+        live = slot[:n][None, :] < counts[:, w, None]  # [B, n]
+        segs = torch.where(live[..., None, None], segments_win[:, w * cap : w * cap + n], 0.0)
+        cyb = cy[:, None, r0:r1, None]  # [B, 1, R, 1]
+        step = seg_chunk(b, r1 - r0, width)
+        for s0 in range(0, n, step):
+            chunk = segs[:, s0 : s0 + step, None, None]  # [B, C, 1, 1, 3, 2]
+            out[:, r0:r1] += winding_contrib(chunk, cxb, cyb).sum(dim=1, dtype=torch.int32)
+    return out

@@ -14,9 +14,11 @@ import pytest
 
 import torch
 
+from fontrx_torch.bench.cjk import UPEM, synthetic_strokes
 from fontrx_torch.bound import (
     FP32_OPS_PER_S, HBM_BYTES_PER_S, PAGE_TRANSFORM, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms,
-    page_bytes, page_msaa_bytes, page_msaa_work, page_work, sdf_pairs, sdf_work, solve_work)
+    page_bytes, page_msaa_bytes, page_msaa_work, page_work, sdf_pairs, sdf_work, solve_work,
+    window_bytes, window_work)
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import page_ref
@@ -68,14 +70,15 @@ def test_padding_is_not_counted():
     assert (ops, crossings) == (solve_work(SQUARE[None], [4], [10], 1.0, **kw)[0] + 3 * 11, 20)
 
 
-def _scalar_work(segs, n, max_y, scale, height, offsets, columns):
-    """The float program, one (segment, sample row) pair at a time."""
+def _scalar_work(segs, n, max_y, scale, height, offsets, columns, row0=0):
+    """The float program, one (segment, sample row) pair at a time, on rows
+    ``row0 .. row0 + height - 1``."""
     ops = crossings = 0
     for q in segs[:n].reshape(-1, 6):
         p0y, p1y, p2y = f32(q[1]), f32(q[3]), f32(q[5])
         a = p0y - f32(2) * p1y + p2y
         ops += 9 + (4 if a != 0 else 2)
-        for y in range(height):
+        for y in range(row0, row0 + height):
             for oy in offsets:
                 cy = (f32(max_y - y) + f32(oy)) / f32(scale)
                 if a != 0:
@@ -112,6 +115,60 @@ def test_glyphs_match_the_scalar_program(k):
             w = _scalar_work(np.asarray(batch.segments[i]), int(batch.seg_counts[i]),
                              g.max_y, g.scale, size, offsets, k)
             want = [want[0] + w[0], want[1] + w[1]]
+    assert got == tuple(want) and got[1] > 0
+
+
+def _two_windows(height):
+    """SQUARE as a two-window stream of 5-row windows at scale 1, anchor
+    ``max_y = 10`` and ``oy = -0.5`` (rows at 9.5, 8.5, ...): window 0 holds
+    all four edges, window 1 the two upright ones and a padding slot."""
+    win = np.zeros((1, 2 * 4, 3, 2), f32)
+    win[0, :4] = SQUARE
+    win[0, 4:6] = SQUARE[[1, 3]]
+    return window_work(win, [[4, 2]], [10], 1.0, height=height, width=6, win_rows=5,
+                       sample_offset=(0.0, -0.5))
+
+
+def test_window_work_by_hand():
+    # every edge is a line: 11 ops of constants per live copy; an upright
+    # edge's pair costs 4, its crossing 4 and a placement; one sum a pixel
+    window0 = 4 * 11 + 2 * 5 * 4 + 10 * (4 + 1)
+    window1 = 2 * 11 + 2 * 5 * 4 + 10 * (4 + 1)
+    assert _two_windows(10) == (window0 + window1 + 10 * 6, 20)
+    # height 8 cuts window 1 to rows 5..7
+    window1 = 2 * 11 + 2 * 3 * 4 + 6 * (4 + 1)
+    assert _two_windows(8) == (window0 + window1 + 8 * 6, 16)
+
+
+def test_window_bytes_by_hand():
+    # 6 live copies of 24 B, 2 counts, one glyph's anchors, 10 x 6 int32 pixels
+    assert window_bytes([[4, 2]], 10, 6) == 6 * 24 + 2 * 4 + 8 + 10 * 6 * 4
+    assert window_bytes(np.zeros((3, 2), np.int32), 4, 4) == 3 * 2 * 4 + 3 * 8 + 3 * 16 * 4
+
+
+@pytest.mark.parametrize("height,win_rows", [(48, 32), (32, 16)])
+def test_window_work_matches_the_scalar_program(height, win_rows):
+    rng = np.random.default_rng(9)
+    segs = np.stack([synthetic_strokes(rng, 48) for _ in range(2)])
+    scale = f32(height / UPEM)
+    max_y = np.full(2, height - 1)
+    n_windows = -(-height // win_rows)
+    # each window holds the segments of half the glyph, in order
+    win = np.zeros((2, n_windows * 48, 3, 2), f32)
+    counts = np.zeros((2, n_windows), np.int32)
+    for w in range(n_windows):
+        part = segs[:, w % 2 * 24 : w % 2 * 24 + 24]
+        win[:, w * 48 : w * 48 + 24] = part
+        counts[:, w] = 24
+    want = [2 * height * 40, 0]
+    with np.errstate(all="ignore"):
+        for w in range(n_windows):
+            r0 = w * win_rows
+            for b in range(2):
+                o, c = _scalar_work(win[b, w * 48 :], 24, max_y[b], scale,
+                                    min(win_rows, height - r0), [0.0], 1, row0=r0)
+                want = [want[0] + o, want[1] + c]
+    got = window_work(win, counts, max_y, scale, height=height, width=40, win_rows=win_rows)
     assert got == tuple(want) and got[1] > 0
 
 

@@ -1,6 +1,6 @@
 """fontrx_torch and chip_smoke.py import neither JAX nor anything of the JAX
-package ``fontrx``, and the CUDA build keeps the float rules: no FMA
-contraction, no fast math, the Hopper target."""
+package ``fontrx`` or of its ``benchmarks``, and the CUDA build keeps the
+float rules: no FMA contraction, no fast math, the Hopper target."""
 
 import pathlib
 import subprocess
@@ -44,6 +44,9 @@ MODULES = [
     "fontrx_torch.geometry.triangulated_glyph",
     "fontrx_torch.pack",
     "fontrx_torch.pack.segments",
+    "fontrx_torch.pack.windows",
+    "fontrx_torch.bench",
+    "fontrx_torch.bench.cjk",
     "fontrx_torch.io",
     "fontrx_torch.io.qoi",
     "fontrx_torch.engine.raster",
@@ -66,7 +69,7 @@ def test_imports_without_jax(module):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
         " and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
-        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'fontrx')\n"
+        "ref = sorted(m for m in sys.modules if m.split('.')[0] in ('fontrx', 'benchmarks'))\n"
         "assert not ref, ref\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
