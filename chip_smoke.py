@@ -49,6 +49,21 @@ just after:
   session with ``m`` pressed (the wide route: K8's pairs), a narrow session
   (640 x 480, six lines, ``m`` pressed, three events: the four-pass route)
   and the stress page's 6 frames through ``render_direct(msaa=True)``.
+- **sharded path** (``fontrx_torch.engine.sharding``), after the checks
+  below, on meshes of 4 shards laid over the visible cards round robin (all
+  on ``cuda:0`` of one card): cjk64 through ``winding_sharded`` on glyphs
+  and through ``winding_sharded_2d`` on 2 x 2 (32-row bands, K4's route in
+  the reference), ascii256 padded to 96 glyphs on 2 x 2 (128-row bands),
+  cjk64's 2 x 2 coverage, cjk32's SDF and ascii128's Loop-Blinn fill on
+  glyphs, and config 5's first frame as page-space segments through
+  ``page_rows_sharded`` on 4 row bands (1080 rows padded to 1536); then
+  ``fontrx_torch.entry.dryrun_multichip(8)`` and ``dryrun_multihost(2, 4)``
+  (two processes on the card, joined by gloo on localhost). Each result
+  equals the same workload unsharded on every pixel (the SDF as int32 bit
+  patterns, the page cropped), and the launches are counted exactly. Each
+  sharded and unsharded call is timed, and ``winding()`` on each shard of
+  cjk64's two meshes (the shards ``sharding.winding_shards`` cuts) from
+  graph replays, beside its bound, each held to the plain version.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -95,9 +110,10 @@ from fontrx_torch.bound import (
     page_work, sdf_work, solve_work, window_bytes, window_work)
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
+from fontrx_torch.engine import sharding
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
-from fontrx_torch.entry import entry
+from fontrx_torch.entry import dryrun_multichip, dryrun_multihost, entry
 from fontrx_torch.font.font import Font
 from fontrx_torch.geometry import TriangulatedGlyph
 from fontrx_torch.io import qoi
@@ -167,6 +183,12 @@ NARROW_TEXT = "\n".join(
     "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(6))
 NARROW_SIZE = (640, 480)
 NARROW_EVENTS = (("scroll", -0.5, (0.1, 0.1)), ("drag", 0.01, 0.005), ("scroll", 0.5, (0.0, 0.2)))
+
+# the sharded phase: 4-shard meshes (glyphs, 2 x 2 glyphs x rows, row bands)
+# laid over the visible cards round robin, the dry runs' mesh and processes
+SHARDS = 4
+DRYRUN_SHARDS = 8
+MULTIHOST = (2, 4)  # processes, shards each
 
 KERNELS = (winding, coverage, sdf, loopblinn, page)
 
@@ -377,6 +399,188 @@ def oracle_rows(q, page_w, rows):
         return np.concatenate(list(pool.map(
             oracle_row, repeat(q), [cols + np.float32(ox) for _, ox in rows],
             [y for y, _ in rows])))
+
+
+def counts() -> dict:
+    """Every kernel's launch count."""
+    return {"winding": winding.launches, "coverage": coverage.launches, "sdf": sdf.launches,
+            "loopblinn": loopblinn.launches, "page": page.launches,
+            "page_msaa": page.msaa_launches, "winding_windows": winding.windows_launches}
+
+
+def pad_batch(n, *arrays, fill=0):
+    """Each array padded along dim 0 to ``n`` with ``fill`` (empty glyphs).
+    ``fill`` is a value, or one per array."""
+    fills = fill if isinstance(fill, tuple) else (fill,) * len(arrays)
+    return tuple(torch.cat([a, a.new_full((n - len(a), *a.shape[1:]), f)])
+                 for a, f in zip(arrays, fills))
+
+
+def shard_bound(segments, seg_counts, shard, height, width):
+    """``bound`` of ``winding()`` on one shard: its segments (NumPy, with
+    their live counts) and its device tensors ``(seg, min_x, max_y, scale)``
+    at ``height`` x ``width``."""
+    seg, min_x, max_y, scale = shard
+    nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y))
+    nbytes += len(seg) * height * width * 4
+    ops, crossings = solve_work(segments, seg_counts, max_y.cpu().numpy(), scale, height=height,
+                                row_offsets=[0.0])
+    ops += len(seg) * height * width
+    return (*bound_ms(nbytes, ops), ops, crossings)
+
+
+def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, lb_args,
+                  lb_out, config5):
+    """Drive the sharded path (``fontrx_torch.engine.sharding``) on the
+    workloads above, split over 4-shard meshes, and hold each to the same
+    workload unsharded; then the two dry runs. Returns the record (the dry
+    runs' launches in it) and the launches of the sharded workloads."""
+    mesh = sharding.make_mesh(SHARDS)
+    mesh22 = sharding.make_mesh_2d(2, SHARDS // 2)
+    rows = sharding.make_row_mesh(SHARDS)
+    cjk, cjk_grids, _ = atlases["cjk64"]
+    cjk_args = packed_to_device(cjk, cjk_grids, dev)
+    ascii_batch, ascii_grids, _ = atlases["ascii256"]
+    ascii_args = packed_to_device(ascii_batch, ascii_grids, dev)
+    n_ascii = -(-len(ascii_grids) // SHARDS) * SHARDS
+    ascii_padded = (*pad_batch(n_ascii, *ascii_args[:3]), ascii_args[3])
+    sdf_batch, sdf_grids, _ = sdf_atlases["cjk32"]
+    sdf_args = packed_to_device(sdf_batch, sdf_grids, dev)
+    lb_padded = (*pad_batch(n_ascii, *lb_args[:4], fill=(0.0, loopblinn_ref.CLASS_PAD, 0, 0)),
+                 lb_args[4])
+    sess5, view5, frame5 = config5
+    h5, w5 = sess5.renderer.height, sess5.renderer.width
+    inputs5 = sess5.renderer.page_inputs(view5)
+    flat5 = page_ref.transform_segments(*inputs5)[None].contiguous()
+    one = (torch.zeros(flat5.shape[1], dtype=torch.int32, device=dev),
+           torch.zeros((1, 2), dtype=torch.float32, device=dev))
+
+    # name -> (sharded call, its mesh, the whole result from the shards, the
+    # unsharded call, the unsharded result the phase already has)
+    work = {
+        "cjk64_glyphs4": (
+            lambda: sharding.winding_sharded(*cjk_args, height=64, width=64, mesh=mesh), mesh,
+            lambda out: sharding.gather(mesh, out),
+            lambda: winding.winding_batch(*cjk_args, height=64, width=64),
+            outputs["cjk64"]),
+        "cjk64_2x2": (
+            lambda: sharding.winding_sharded_2d(*cjk_args, height=64, width=64, mesh=mesh22),
+            mesh22, lambda out: sharding.gather(mesh22, out),
+            lambda: winding.winding_batch(*cjk_args, height=64, width=64),
+            outputs["cjk64"]),
+        "ascii256_2x2": (
+            lambda: sharding.winding_sharded_2d(*ascii_padded, height=256, width=256,
+                                                mesh=mesh22),
+            mesh22, lambda out: sharding.gather(mesh22, out),
+            lambda: winding.winding_batch(*ascii_args, height=256, width=256),
+            outputs["ascii256"]),
+        "cjk64_coverage_glyphs4": (
+            lambda: sharding.coverage_sharded(*cjk_args, height=64, width=64, samples=SAMPLES,
+                                              mesh=mesh),
+            mesh, lambda out: sharding.gather(mesh, out),
+            lambda: coverage.coverage_batch(*cjk_args, height=64, width=64, samples=SAMPLES),
+            cov_outputs["cjk64"][0]),
+        "cjk32_sdf_glyphs4": (
+            lambda: sharding.sdf_sharded(*sdf_args, height=32, width=32, mesh=mesh), mesh,
+            lambda out: sharding.gather(mesh, out).view(torch.int32),  # bit patterns
+            lambda: sdf.sdf_batch(*sdf_args, height=32, width=32),
+            sdf_outputs["cjk32"][0].view(torch.int32)),
+        "ascii128_loopblinn_glyphs4": (
+            lambda: sharding.loopblinn_sharded(*lb_padded, height=LB_SIZE, width=LB_SIZE,
+                                               mesh=mesh),
+            mesh, lambda out: sharding.gather(mesh, out),
+            lambda: loopblinn.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE),
+            lb_out),
+        "config5_rows4": (
+            lambda: sharding.page_rows_sharded(flat5, h5, w5, mesh=rows), rows,
+            lambda out: page_ref.finish(sharding.gather(rows, out)[:h5, :w5], "fill"),
+            lambda: page.direct_page(flat5[0], *one, 1.0, page_h=h5, page_w=w5),
+            frame5),
+    }
+    reset_counts()
+    results = {name: call() for name, (call, *_) in work.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    # winding(): cjk64 on glyphs, cjk64 and ascii256 on 2 x 2, the SDF's sign
+    want = {"winding": 4 * SHARDS, "coverage": SHARDS, "sdf": SHARDS, "loopblinn": SHARDS,
+            "page": SHARDS, "page_msaa": 0, "winding_windows": 0}
+    check(launches == want, f"the sharded path launched {launches}, not {want}")
+    print(f"sharded path: launches {json.dumps(launches)} (winding(): {SHARDS} shards each of "
+          "cjk64 on glyphs, cjk64 on 2 x 2, ascii256 on 2 x 2, and the SDF's sign)")
+
+    record = {}
+    for name, (call, on, whole, single, unsharded) in work.items():
+        shards = results[name]
+        check([t.device for t in shards] == on.flat(), f"{name}: a shard is off its device")
+        got = whole(shards)
+        pad = got[len(unsharded):]  # the padding glyphs: empty
+        check(not pad.any(), f"{name}: a padding glyph has ink")
+        got = got[: len(unsharded)]
+        check(got.shape == unsharded.shape, f"{name}: shape {tuple(got.shape)}")
+        diff = int((got != unsharded).sum())
+        check(diff == 0, f"{name}: {diff} pixels differ from the unsharded result")
+        call_ms = cuda_ms(call, inner=10)
+        single_ms = cuda_ms(single, inner=10)
+        record[name] = dict(call_ms=call_ms, unsharded_call_ms=single_ms, shards=len(shards),
+                            padding_glyphs=len(pad))
+        print(f"sharded {name}: {len(shards)} shards, 0 of {got.numel()} pixels differ from "
+              f"the unsharded result ({len(pad)} padding glyphs empty); sharded call "
+              f"{call_ms:.4f} ms, unsharded call {single_ms:.4f} ms (CUDA events)")
+
+    # K4's function: winding() on each shard of cjk64's glyph mesh and of its
+    # 2 x 2 mesh (32-row bands), as sharding.winding_shards cuts them for
+    # winding_sharded(_2d), held to the plain version and timed (graph
+    # replays, wrapper calls, the plain version) beside each shard's bound
+    scale = cjk_args[3]
+    for name, on in (("cjk64_glyphs4", mesh), ("cjk64_2x2", mesh22)):
+        rec = []
+        for s in sharding.winding_shards(*cjk_args[:3], height=64, mesh=on):
+            shard = (s.segments, s.min_x, s.max_y, scale)
+            b_ms, bound_by, ops, _ = shard_bound(cjk.segments[s.glyphs], cjk.seg_counts[s.glyphs],
+                                                 shard, s.rows, 64)
+
+            def kernel(shard=shard, rows=s.rows):
+                return winding.winding_batch(*shard, height=rows, width=64)
+
+            def plain(shard=shard, rows=s.rows):
+                return winding_ref.winding_batch(*shard, height=rows, width=64)
+
+            check(torch.equal(kernel(), plain()),
+                  f"{name}: the shard of glyphs {s.glyphs} at row {s.row0} differs from the "
+                  "plain version")
+            rec.append(dict(ms=graph_ms(kernel), call_ms=cuda_ms(kernel, inner=10),
+                            plain_ms=cuda_ms(plain, inner=1, reps=3, warmup=1),
+                            bound_ms=b_ms, bound_by=bound_by, bound_ops=ops))
+        record[name].update({f"shard_{key}": [f[key] for f in rec] for key in rec[0]})
+        m, band_h = len(s.segments), s.rows
+        print(f"sharded {name}: winding() per shard ({m} glyphs x {band_h} rows), equal to the "
+              "plain version; graph replay / wrapper call / plain version, bound: "
+              + ", ".join(f"{f['ms']:.4f} / {f['call_ms']:.4f} / {f['plain_ms']:.2f} ms, "
+                          f"{f['bound_ms']:.5f} ms ({f['bound_by']})" for f in rec))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dryrun_multichip(DRYRUN_SHARDS)
+    torch.cuda.synchronize()
+    multichip_s = time.perf_counter() - t0
+    dry = counts()
+    n = DRYRUN_SHARDS
+    want = {"winding": 4 * n, "coverage": n, "sdf": n, "loopblinn": n, "page": n,
+            "page_msaa": 0, "winding_windows": 0}
+    check(dry == want, f"dryrun_multichip({n}) launched {dry}, not {want}")
+    t0 = time.perf_counter()
+    gathered, host_launches = dryrun_multihost(*MULTIHOST)
+    multihost_s = time.perf_counter() - t0
+    check(host_launches == [MULTIHOST[1]] * MULTIHOST[0],
+          f"dryrun_multihost{MULTIHOST}: winding() launches per rank {host_launches}")
+    check(gathered.shape == (2 * MULTIHOST[0] * MULTIHOST[1], 8, 128) and gathered.any(),
+          "dryrun_multihost: the gathered map")
+    print(f"dryrun_multichip({n}): passed in {multichip_s:.2f} s, launches {json.dumps(dry)}; "
+          f"dryrun_multihost{MULTIHOST}: passed in {multihost_s:.2f} s (gloo on localhost, "
+          f"process start-up included), winding() launches per rank {host_launches}")
+    record["dryruns"] = dict(multichip_s=multichip_s, multichip_launches=dry,
+                             multihost_s=multihost_s, multihost_launches=host_launches)
+    return record, launches
 
 
 def main() -> None:
@@ -1035,6 +1239,11 @@ def main() -> None:
               + (f"; session frame {stats['mean_ms']:.3f} ms (p99 {stats['p99_ms']:.3f}), "
                  f"render alone {stats['compute_ms']:.3f} ms" if stats else ""))
 
+    # --- sharded path and the dry runs (on the results above) -----------------
+    shard_record, sharded_launches = sharded_phase(
+        dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, lb_args, lb_out,
+        (sess5, views5[0], frames5[0]))
+
     want = np.where(oracle.winding_map(packed.segments, grid, contract=False) != 0,
                     255, 0).astype(np.uint8)
     check(decoded.shape == (grid.height, grid.width, 3), "quick start QOI shape")
@@ -1080,21 +1289,30 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry_of("winding", "fontrx/kernels/winding_pallas_v2.py:628", winding_launches,
-                 also_replaces="fontrx/kernels/winding_dense.py:297"),
+                 also_replaces=["fontrx/kernels/winding_dense.py:297",
+                                "fontrx/kernels/winding_pallas.py:136"],
+                 sharded_launches=sharded_launches["winding"],
+                 sharded={k: v for k, v in shard_record.items()
+                          if k in ("cjk64_glyphs4", "cjk64_2x2", "ascii256_2x2")}),
         entry_of("coverage", "fontrx/kernels/coverage_pallas.py:211", coverage_launches,
-                 samples=SAMPLES),
+                 samples=SAMPLES, sharded_launches=sharded_launches["coverage"],
+                 sharded=shard_record["cjk64_coverage_glyphs4"]),
         entry_of("sdf", "fontrx/kernels/sdf_pallas.py:180", sdf_launches,
                  also_replaces="fontrx/kernels/sdf_pallas.py:605",
-                 spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches),
+                 spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches,
+                 sharded_launches=sharded_launches["sdf"],
+                 sharded=shard_record["cjk32_sdf_glyphs4"]),
         entry_of("loopblinn", "fontrx/kernels/loopblinn.py:314", lb_launches,
-                 main_atlas="ascii128"),
+                 main_atlas="ascii128", sharded_launches=sharded_launches["loopblinn"],
+                 sharded=shard_record["ascii128_loopblinn_glyphs4"]),
         entry_of("page", "fontrx/kernels/winding_page.py:267", page_launches,
-                 main_atlas="config5"),
+                 main_atlas="config5", sharded_launches=sharded_launches["page"],
+                 sharded=shard_record["config5_rows4"]),
         entry_of("page_msaa", "fontrx/kernels/winding_page.py:537", msaa_launches,
                  main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
         entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,
                  main_atlas="cjk64", source="fontrx_torch/csrc/winding.cu"),
-    ], "host_pack_s": pack_s}))
+    ], "host_pack_s": pack_s, "dryruns": shard_record["dryruns"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,13 @@ equal to its original by a test. It imports neither JAX nor anything of
 - ``engine.raster``       ``RasterEngine``: batched winding maps, fills,
   coverage and SDF atlases
 - ``engine.atlas``        character-set packing and atlas rendering
+- ``engine.sharding``     meshes of devices and every family sharded over
+  them (glyphs, glyphs x row bands, a page's row bands)
 - ``scene.transform``     the view transform (zoom, pan)
 - ``scene.layout``        text -> glyph instances (the plain path)
 - ``scene.page``          ``PageRenderer.render_direct``: a whole page in
   one kernel launch
 - ``convert``             host batches and grids to tensors on a device
-- ``entry``               ``entry()``: the raster step and an example batch
+- ``entry``               ``entry()``: the raster step and an example batch;
+  ``dryrun_multichip`` and ``dryrun_multihost``, the multi-device dry runs
 """

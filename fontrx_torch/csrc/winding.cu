@@ -1,13 +1,18 @@
 // Nonzero winding maps of quadratic glyph outlines, for Hopper (sm_90a).
 //
-// Replaces the two TPU Pallas kernels of the glyph fill path:
+// Replaces the two TPU Pallas kernels of the glyph fill path and the one of
+// the sharded path (fontrx_torch/engine/sharding.py):
 //   K1  fontrx/kernels/winding_pallas_v2.py::_make_v2_kernel (tiles > 128 px)
 //   K2  fontrx/kernels/winding_dense.py::_make_dense_kernel  (tiles <= 128 px)
-// Both compute one function: for every pixel, the sum of the signs of the
-// crossings of the horizontal line through its sample point with the glyph's
-// quadratic segments that do not lie left of the sample. Their TPU-specific
-// partitions (128-row strips, column tiles, carry sweeps, lane packing) are
-// not carried over; one kernel serves both tile sizes.
+//   K4  fontrx/kernels/winding_pallas.py::_winding_kernel (launcher
+//       winding_pallas_batch; 8 x 128 tiles, one row at a time, with a sample
+//       offset: winding_sharded, and winding_sharded_2d's bands of 8k rows)
+// All three compute one function: for every pixel, the sum of the signs of
+// the crossings of the horizontal line through its sample point with the
+// glyph's quadratic segments that do not lie left of the sample, with the
+// same root solve and IEEE '/' and sqrt. Their TPU-specific partitions
+// (128-row strips, 8 x 128 tiles, column tiles, carry sweeps, lane packing)
+// are not carried over; one kernel serves every tile size and band.
 //
 // Design: one block per (glyph, band of rows).
 //   1. cx[c] = ((float)(min_x + c) + ox) / scale goes to shared memory.

@@ -2,7 +2,8 @@
 
 ``winding()`` replaces the TPU's two winding kernels on the glyph fill path,
 ``winding_pallas_v2.py::_make_v2_kernel`` and
-``winding_dense.py::_make_dense_kernel``; ``winding_windows()`` replaces the
+``winding_dense.py::_make_dense_kernel``, and the one the sharded path runs,
+``winding_pallas.py::_winding_kernel`` (K4); ``winding_windows()`` replaces the
 window-packed one, ``winding_dense.py::_make_dense_win_kernel`` (K3). See the
 note in the source.
 

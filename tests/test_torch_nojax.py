@@ -1,6 +1,11 @@
 """fontrx_torch and chip_smoke.py import neither JAX nor anything of the JAX
 package ``fontrx`` or of its ``benchmarks``, and the CUDA build keeps the
-float rules: no FMA contraction, no fast math, the Hopper target."""
+float rules: no FMA contraction, no fast math, the Hopper target.
+
+The module imports no JAX, so its card tests (the sharded winding on
+``cuda:0``) also run where there is none:
+``python -m pytest --noconftest -m requires_cuda tests/test_torch_nojax.py``.
+"""
 
 import pathlib
 import subprocess
@@ -10,7 +15,9 @@ import pytest
 import torch
 
 from fontrx_torch import device
-from fontrx_torch.kernels import _build
+from fontrx_torch.engine import sharding
+from fontrx_torch.entry import _example_batch
+from fontrx_torch.kernels import _build, winding, winding_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -51,6 +58,7 @@ MODULES = [
     "fontrx_torch.io.qoi",
     "fontrx_torch.engine.raster",
     "fontrx_torch.engine.atlas",
+    "fontrx_torch.engine.sharding",
     "fontrx_torch.scene",
     "fontrx_torch.scene.transform",
     "fontrx_torch.scene.layout",
@@ -147,3 +155,47 @@ def test_require_cuda():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             device.require_cuda()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 4])
+def test_sharded_winding_on_card(cuda, n):
+    """``winding_sharded`` on ``n`` shards of ``cuda:0``: one launch of
+    ``winding()`` a shard, each shard equal to the plain version, the whole
+    map to one unsharded launch."""
+    args = (*(torch.from_numpy(a) for a in _example_batch()[:3]), float(_example_batch()[3]))
+    mesh = sharding.make_mesh(n, [cuda] * n)
+    before = winding.launches
+    shards = sharding.winding_sharded(*args, height=128, width=128, mesh=mesh)
+    torch.cuda.synchronize()
+    assert winding.launches == before + n
+    plain = sharding.winding_sharded(*args, height=128, width=128, mesh=mesh, plain=True)
+    assert winding.launches == before + n
+    assert all(s.device == cuda for s in shards)
+    assert all(map(torch.equal, shards, plain))
+    whole = winding.winding_batch(*(a.to(cuda) for a in args[:3]), args[3], height=128,
+                                  width=128)
+    assert (whole != 0).any() and torch.equal(sharding.gather(mesh, shards), whole)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_glyph,n_rows", [(1, 1), (2, 2)])
+def test_sharded_winding_2d_on_card(cuda, n_glyph, n_rows):
+    args = (*(torch.from_numpy(a) for a in _example_batch()[:3]), float(_example_batch()[3]))
+    mesh = sharding.make_mesh_2d(n_glyph, n_rows, [cuda] * (n_glyph * n_rows))
+    before = winding.launches
+    shards = sharding.winding_sharded_2d(*args, height=128, width=128, mesh=mesh)
+    torch.cuda.synchronize()
+    assert winding.launches == before + n_glyph * n_rows
+    plain = sharding.winding_sharded_2d(*args, height=128, width=128, mesh=mesh, plain=True)
+    assert all(map(torch.equal, shards, plain))
+    want = winding_ref.winding_batch(*(a.to(cuda) for a in args[:3]), args[3], height=128,
+                                     width=128)
+    assert torch.equal(sharding.gather(mesh, shards), want)
