@@ -1,6 +1,6 @@
 """Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
-atlas, Loop-Blinn atlas, direct page and interactive MSAA paths once on one
-CUDA card, and check them.
+atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths and
+its roofline probe once on one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -64,6 +64,16 @@ just after:
   sharded and unsharded call is timed, and ``winding()`` on each shard of
   cjk64's two meshes (the shards ``sharding.winding_shards`` cuts) from
   graph replays, beside its bound, each held to the plain version.
+- **roofline probe** (K13), last: ``fontrx_torch.bench.roofline.run``, the
+  port of ``tools/tpu_probes/tpu_roofline.py``: the four op mixes of
+  ``csrc/roofline.cu`` at ``[16, 512, 128]`` x 1024 applications, each loop
+  checked in ``cuobjdump -sass`` against the modelled instructions (an FMUL
+  and an FADD and no FFMA; one add of 3 an application, no folded chain; an
+  FSETP, an FSEL and an FADD) and timed beside its issue bound; the HBM
+  bandwidth of ``base + dep`` over 256 MiB; ascii256's counted work bound
+  under the data sheet's and the measured rates. Each mix's output equals
+  the plain version bit for bit, and each kernel bound by operations above
+  also gets its bound at the measured FP32 rate.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -104,10 +114,12 @@ from itertools import repeat
 import numpy as np
 import torch
 
+from fontrx_torch.bench import roofline as roofline_probe
 from fontrx_torch.bench.cjk import UPEM, make_batch
+from fontrx_torch.bench.timing import cuda_ms, graph_ms
 from fontrx_torch.bound import (
     bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes, page_msaa_work,
-    page_work, sdf_work, solve_work, window_bytes, window_work)
+    page_work, sdf_work, winding_work, window_bytes, window_work)
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine import sharding
@@ -118,8 +130,8 @@ from fontrx_torch.font.font import Font
 from fontrx_torch.geometry import TriangulatedGlyph
 from fontrx_torch.io import qoi
 from fontrx_torch.kernels import (
-    _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, page, page_ref, sdf,
-    sdf_ref, winding, winding_ref)
+    _build, coverage, coverage_ref, loopblinn, loopblinn_ref, oracle, page, page_ref, roofline,
+    roofline_ref, sdf, sdf_ref, winding, winding_ref)
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import glyph_segments, pack_glyph, xsort_segments
 from fontrx_torch.scene.interactive import InteractiveSession
@@ -190,7 +202,7 @@ SHARDS = 4
 DRYRUN_SHARDS = 8
 MULTIHOST = (2, 4)  # processes, shards each
 
-KERNELS = (winding, coverage, sdf, loopblinn, page)
+KERNELS = (winding, coverage, sdf, loopblinn, page, roofline)
 
 
 def reset_counts() -> None:
@@ -206,59 +218,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke failed: {what}")
 
 
-def cuda_ms(fn, *, inner: int, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
-    calls, in ms per call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def graph_ms(fn, *, calls: int = 20) -> float:
-    """Device ms per call of ``fn``: CUDA-event timings of a CUDA graph that
-    replays ``calls`` calls, so no host launch overhead is counted."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up before capture, on a side stream
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, inner=1) / calls
-
-
-def bound(batch, args, out, *, row_offsets, columns: int, samples_per_pixel: int):
-    """The least time the card could take for a kernel's work, in ms, what
-    binds it, and the FP32 operations and crossings counted: the inputs read
-    once and the output written once at the memory rate, against the
-    operations these inputs need (``fontrx_torch.bound``) and one per sample
-    at the FP32 rate."""
-    seg, min_x, max_y, scale = args
-    nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y, out))
-    ops, crossings = solve_work(batch.segments, batch.seg_counts, max_y.cpu().numpy(), scale,
-                                height=out.shape[1], row_offsets=row_offsets, columns=columns)
-    ops += out.numel() * samples_per_pixel
-    return (*bound_ms(nbytes, ops), ops, crossings)
-
-
 def sdf_bound(args, out):
-    """The SDF distance kernel's bound, as ``bound``: the segments, anchors
-    and winding map read once and the output written once, against the
-    operations of the (segment, pixel) pairs the function needs
-    (``fontrx_torch.bound.sdf_work``, counted on the card)."""
+    """The SDF distance kernel's bound in ms, what binds it, and the FP32
+    operations and pairs counted: the segments, anchors and winding map read
+    once and the output written once, against the operations of the
+    (segment, pixel) pairs the function needs (``fontrx_torch.bound.sdf_work``,
+    counted on the card)."""
     seg, min_x, max_y, scale = args
     nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y, out))
     nbytes += out.numel() * 4  # the int32 winding map
@@ -416,19 +381,6 @@ def pad_batch(n, *arrays, fill=0):
                  for a, f in zip(arrays, fills))
 
 
-def shard_bound(segments, seg_counts, shard, height, width):
-    """``bound`` of ``winding()`` on one shard: its segments (NumPy, with
-    their live counts) and its device tensors ``(seg, min_x, max_y, scale)``
-    at ``height`` x ``width``."""
-    seg, min_x, max_y, scale = shard
-    nbytes = sum(t.numel() * t.element_size() for t in (seg, min_x, max_y))
-    nbytes += len(seg) * height * width * 4
-    ops, crossings = solve_work(segments, seg_counts, max_y.cpu().numpy(), scale, height=height,
-                                row_offsets=[0.0])
-    ops += len(seg) * height * width
-    return (*bound_ms(nbytes, ops), ops, crossings)
-
-
 def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, lb_args,
                   lb_out, config5):
     """Drive the sharded path (``fontrx_torch.engine.sharding``) on the
@@ -536,8 +488,9 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
         rec = []
         for s in sharding.winding_shards(*cjk_args[:3], height=64, mesh=on):
             shard = (s.segments, s.min_x, s.max_y, scale)
-            b_ms, bound_by, ops, _ = shard_bound(cjk.segments[s.glyphs], cjk.seg_counts[s.glyphs],
-                                                 shard, s.rows, 64)
+            ops, nbytes, _ = winding_work(cjk.segments[s.glyphs], cjk.seg_counts[s.glyphs],
+                                          s.max_y, scale, height=s.rows, width=64)
+            b_ms, bound_by = bound_ms(nbytes, ops)
 
             def kernel(shard=shard, rows=s.rows):
                 return winding.winding_batch(*shard, height=rows, width=64)
@@ -581,6 +534,68 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
     record["dryruns"] = dict(multichip_s=multichip_s, multichip_launches=dry,
                              multihost_s=multihost_s, multihost_launches=host_launches)
     return record, launches
+
+
+def bits(t):
+    """A float32 tensor's int32 bit patterns (so -0.0 and +0.0 differ); any
+    other tensor as it is."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def roofline_phase(dev, record, ascii256):
+    """The roofline probe (K13), the port of ``tools/tpu_probes/
+    tpu_roofline.py``: ``fontrx_torch.bench.roofline.run`` on the
+    ``(batch, grids)`` of ascii256 packed above, with the launch counts set
+    to 0 just before it; then each mix's output held to the plain
+    version bit for bit, and the plain version timed. Each kernel above bound
+    by operations also gets its bound at the measured f32 mul+add rate.
+    Returns the kernels line's entry."""
+    reset_counts()
+    result, outputs = roofline_probe.run(ascii256, dev)
+    torch.cuda.synchronize()
+    launches = roofline.launches
+    # per mix: the result, graph_ms's warm-up and the captured calls
+    want = len(roofline_ref.MIXES) * (2 + roofline_probe.CALLS)
+    check(launches == want, f"the roofline probe launched its kernel {launches} times, not {want}")
+    check(not any(counts().values()), f"the roofline probe launched {counts()}")
+    roofline_probe.report(result)
+
+    max_err = 0.0
+    for mix, (x, out) in outputs.items():
+        m = result["mixes"][mix]
+        ref = roofline_ref.elementwise(mix, x, roofline_probe.ITERS)
+        check(out.shape == ref.shape == x.shape and out.dtype == ref.dtype == x.dtype,
+              f"roofline {mix}: shape or type")
+        diff = int((bits(out) != bits(ref)).sum())
+        max_err = max(max_err, float((out.double() - ref.double()).abs().max()))
+        check(diff == 0, f"roofline {mix}: {diff} elements differ from the plain version (bits)")
+        m["plain_ms"] = cuda_ms(
+            lambda mix=mix, x=x: roofline_ref.elementwise(mix, x, roofline_probe.ITERS),
+            inner=1, reps=3, warmup=1)
+        nbytes = 2 * x.numel() * x.element_size()
+        m["bound_ms"], m["bound_by"] = bound_ms(nbytes, m["ops"])
+        print(f"roofline {mix}: {out.numel()} elements equal the plain version bit for bit "
+              f"({int(bits(out)[0, 0, 0])}); plain version {m['plain_ms']:.3f} ms; bound "
+              f"{m['bound_ms']:.5f} ms ({m['bound_by']}; {nbytes} B, {m['ops']} ops at the data "
+              "sheet's FP32 rate)")
+
+    # the kernels above bound by operations, at the measured single-op FP32 rate
+    rate = result["mixes"]["f32_mul_add"]["tops"] * 1e12
+    at_rate = {f"{kname}/{atlas}": rec["bound_ops"] / rate * 1e3
+               for kname, per in record.items() for atlas, rec in per.items()
+               if rec.get("bound_by") == "operations"}
+    for name, ms in at_rate.items():
+        kname, atlas = name.split("/")
+        print(f"roofline: {name} bound {record[kname][atlas]['bound_ms']:.4f} ms at 67 TFLOP/s, "
+              f"{ms:.4f} ms at the measured {rate / 1e12:.2f} T op/s (information only)")
+
+    # the f32 mul+add mix in the main keys, the other mixes beside them
+    mixes = dict(result.pop("mixes"))
+    mix = "f32_mul_add"
+    return {"name": "roofline", "route": "cuda", "source": roofline.SOURCE,
+            "replaces": "tools/tpu_probes/tpu_roofline.py:59", "launches": launches,
+            "max_abs_err": max_err, "mix": mix, **mixes.pop(mix), "library_ms": None,
+            "mixes": mixes, **result, "operations_bound_at_measured_fp32_ms": at_rate}
 
 
 def main() -> None:
@@ -815,7 +830,8 @@ def main() -> None:
             "winding": (
                 lambda: winding.winding_batch(*args, height=size, width=size),
                 lambda: winding_ref.winding_batch(*args, height=size, width=size),
-                bound(batch, args, out, row_offsets=[0.0], columns=1, samples_per_pixel=1),
+                winding_work(batch.segments, batch.seg_counts, args[2], args[3], height=size,
+                             width=size),
             ),
             "coverage": (
                 lambda: coverage.coverage_batch(*args, height=size, width=size,
@@ -823,12 +839,14 @@ def main() -> None:
                 lambda: coverage_ref.coverage_batch(*args, height=size, width=size,
                                                     samples=SAMPLES),
                 # the k sub-row offsets; ox varies fastest in sample_offsets
-                bound(batch, args, cov,
-                      row_offsets=coverage_ref.sample_offsets(SAMPLES)[::SAMPLES, 1],
-                      columns=SAMPLES, samples_per_pixel=SAMPLES * SAMPLES),
+                winding_work(batch.segments, batch.seg_counts, args[2], args[3], height=size,
+                             width=size,
+                             row_offsets=coverage_ref.sample_offsets(SAMPLES)[::SAMPLES, 1],
+                             columns=SAMPLES, samples_per_pixel=SAMPLES * SAMPLES),
             ),
         }
-        for kname, (kernel, plain, (b_ms, bound_by, ops, crossings)) in kernels.items():
+        for kname, (kernel, plain, (ops, nbytes, crossings)) in kernels.items():
+            b_ms, bound_by = bound_ms(nbytes, ops)
             call_ms = cuda_ms(kernel, inner=10)
             kernel_ms = graph_ms(kernel)
             plain_ms = cuda_ms(plain, inner=1)
@@ -1258,6 +1276,9 @@ def main() -> None:
     check(torch.equal(mask, ref_mask.to(torch.float32)), "entry() differs from winding_ref")
     print(f"entry(): [8, 128, 640] mask equals winding_ref, inked {int(mask.sum())}")
 
+    # --- roofline probe (K13), once --------------------------------------------
+    roofline_entry = roofline_phase(dev, record, atlases["ascii256"][:2])
+
     # --- host baseline and the card ------------------------------------------
     batch, grids, _ = atlases["ascii256"]
     reps = []
@@ -1312,6 +1333,7 @@ def main() -> None:
                  main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
         entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,
                  main_atlas="cjk64", source="fontrx_torch/csrc/winding.cu"),
+        roofline_entry,
     ], "host_pack_s": pack_s, "dryruns": shard_record["dryruns"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

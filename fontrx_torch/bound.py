@@ -136,6 +136,28 @@ def solve_work(segments, seg_counts, max_y, scale, *, height, row_offsets, colum
     return ops + crossings * columns, crossings
 
 
+# bytes of a glyph's two int32 anchors (min_x, max_y)
+ANCHOR_BYTES = 2 * 4
+
+
+def winding_work(segments, seg_counts, max_y, scale, *, height, width, row_offsets=(0.0,),
+                 columns=1, samples_per_pixel=1, out_bytes=4):
+    """FP32 operations, bytes and crossings of a kernel on the winding
+    stream (``winding()``, and the tile coverage with its sub-rows and
+    sub-columns) on these inputs: the root solves (``solve_work``) and
+    ``samples_per_pixel`` operations per pixel; the float32 ``[B, S, 3, 2]``
+    segments and each glyph's anchors read once and the ``[B, height,
+    width]`` output, ``out_bytes`` a pixel, written once. ``max_y`` an array
+    or a tensor. Returns ``(ops, nbytes, crossings)``."""
+    seg = np.asarray(segments, f32)
+    max_y = torch.as_tensor(max_y).cpu().numpy()
+    ops, crossings = solve_work(seg, seg_counts, max_y, scale, height=height,
+                                row_offsets=row_offsets, columns=columns)
+    pixels = seg.shape[0] * height * width
+    nbytes = seg.nbytes + seg.shape[0] * ANCHOR_BYTES + pixels * out_bytes
+    return ops + pixels * samples_per_pixel, nbytes, crossings
+
+
 # bytes of the window-packed stream: a live copy's six float32 coordinates,
 # a window's int32 count, a glyph's two int32 anchors, an int32 pixel
 WINDOW_COPY_BYTES = 6 * 4

@@ -75,6 +75,14 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
     )},
+    "roofline": {
+        "roofline": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,     # mix, x, out
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p],        # n, iters, stream
+        ),
+        "roofline_unroll": (ctypes.c_int, []),
+    },
     "page": {
         "page": (
             ctypes.c_int,

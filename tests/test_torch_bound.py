@@ -1,6 +1,6 @@
 """fontrx_torch.bound counts the root-solve work these inputs need: by hand on
 a square and a parabola, and against a scalar loop over the float program
-on glyphs of DejaVu Sans. For the SDF it counts the (segment, pixel) pairs
+on glyphs of DejaVu Sans; ``winding_work`` adds the pixels and the bytes. For the SDF it counts the (segment, pixel) pairs
 the function needs, fewer than the JAX package's per-tile lists
 (``pack_sdf_tiles``) hold, and the least operations of the distance
 program, held to a scalar loop that counts each operation as it runs and
@@ -18,7 +18,7 @@ from fontrx_torch.bench.cjk import UPEM, synthetic_strokes
 from fontrx_torch.bound import (
     FP32_OPS_PER_S, HBM_BYTES_PER_S, PAGE_TRANSFORM, SDF_PAIR_OPS, SDF_SEGMENT_TERMS, bound_ms,
     page_bytes, page_msaa_bytes, page_msaa_work, page_work, sdf_pairs, sdf_work, solve_work,
-    window_bytes, window_work)
+    winding_work, window_bytes, window_work)
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import page_ref
@@ -68,6 +68,23 @@ def test_padding_is_not_counted():
     # counted as live, a zero segment is a flat line: its constants only
     ops, crossings = solve_work(padded, [7], [10], 1.0, **kw)
     assert (ops, crossings) == (solve_work(SQUARE[None], [4], [10], 1.0, **kw)[0] + 3 * 11, 20)
+
+
+@pytest.mark.parametrize("max_y", [[10], torch.tensor([10], dtype=torch.int32)])
+def test_winding_work_adds_the_pixels_and_bytes(max_y):
+    # the square's 2 x 2 coverage on a 10 x 6 float32 map: the solves of two
+    # sub-rows placed among two sub-columns, four samples a pixel; the
+    # segments, two int32 anchors and the map
+    kw = dict(row_offsets=[-0.5, 0.0], columns=2)
+    ops, nbytes, crossings = winding_work(SQUARE[None], [4], max_y, 1.0, height=10, width=6,
+                                          samples_per_pixel=4, **kw)
+    solve_ops, solve_crossings = solve_work(SQUARE[None], [4], [10], 1.0, height=10, **kw)
+    assert (ops, crossings) == (solve_ops + 10 * 6 * 4, solve_crossings)
+    assert nbytes == 4 * 3 * 2 * 4 + 2 * 4 + 10 * 6 * 4
+    # a uint8 map of the winding() defaults: one row offset, one sample
+    ops, nbytes, _ = winding_work(SQUARE[None], [4], max_y, 1.0, height=10, width=6, out_bytes=1)
+    assert ops == solve_work(SQUARE[None], [4], [10], 1.0, height=10, row_offsets=[0.0])[0] + 60
+    assert nbytes == 4 * 3 * 2 * 4 + 2 * 4 + 10 * 6
 
 
 def _scalar_work(segs, n, max_y, scale, height, offsets, columns, row0=0):

@@ -38,6 +38,8 @@ MODULES = [
     "fontrx_torch.kernels.loopblinn_ref",
     "fontrx_torch.kernels.page",
     "fontrx_torch.kernels.page_ref",
+    "fontrx_torch.kernels.roofline",
+    "fontrx_torch.kernels.roofline_ref",
     "fontrx_torch.kernels.grid",
     "fontrx_torch.kernels.oracle",
     "fontrx_torch.font",
@@ -54,6 +56,8 @@ MODULES = [
     "fontrx_torch.pack.windows",
     "fontrx_torch.bench",
     "fontrx_torch.bench.cjk",
+    "fontrx_torch.bench.roofline",
+    "fontrx_torch.bench.timing",
     "fontrx_torch.io",
     "fontrx_torch.io.qoi",
     "fontrx_torch.engine.raster",
@@ -95,7 +99,7 @@ def test_nvcc_flags_keep_float_rules():
 
 
 @pytest.mark.parametrize("source", ["winding.cu", "coverage.cu", "crossings.cuh", "sdf.cu",
-                                    "loopblinn.cu", "page.cu"])
+                                    "loopblinn.cu", "page.cu", "roofline.cu"])
 def test_source_uses_no_fast_intrinsics(source):
     src = (_build.CSRC_DIR / source).read_text()
     for bad in ("__fdividef", "__fsqrt_rn", "__fmaf", "fmaf(", "rsqrtf", "__expf"):
