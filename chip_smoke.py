@@ -1,6 +1,7 @@
 """Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
-atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths and
-its roofline probe once on one CUDA card, and check them.
+atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths, its
+roofline probe and the interactive session's edit path once on one CUDA
+card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -64,7 +65,7 @@ just after:
   sharded and unsharded call is timed, and ``winding()`` on each shard of
   cjk64's two meshes (the shards ``sharding.winding_shards`` cuts) from
   graph replays, beside its bound, each held to the plain version.
-- **roofline probe** (K13), last: ``fontrx_torch.bench.roofline.run``, the
+- **roofline probe** (K13): ``fontrx_torch.bench.roofline.run``, the
   port of ``tools/tpu_probes/tpu_roofline.py``: the four op mixes of
   ``csrc/roofline.cu`` at ``[16, 512, 128]`` x 1024 applications, each loop
   checked in ``cuobjdump -sass`` against the modelled instructions (an FMUL
@@ -74,6 +75,26 @@ just after:
   under the data sheet's and the measured rates. Each mix's output equals
   the plain version bit for bit, and each kernel bound by operations above
   also gets its bound at the measured FP32 rate.
+- **edit path**, last (the session's ``char_input`` and ``backspace``, the
+  incremental layout and the dirty-strip splice: K7 on 256-row bands):
+  config 5's session through the edit script of
+  ``tools/tpu_probes/tpu_interactive_edit.py`` (24 edits, every fourth a
+  backspace) at the first view, then ``scroll(0.5, (0.1, 0.1))`` with 8
+  edits, ``scroll(-8.0, (0, 0))`` with 4, and, since at 1920 x 1080 a line
+  is taller than the band until the page is zoomed out by ~9.4 steps,
+  ``scroll(-2.0)`` and a drag of the last line up to the first line's place
+  with 8; a 480 x 480 session on two of its lines through the first three
+  legs (it bands at the first view and after the zoom-in); the probe's
+  10k-character page (150 paragraphs, default layout options) with the
+  incremental layout on and off, 24 edits and 12 zoom/pan frames each.
+  Every frame equals the plain version's page as the session's cache makes
+  it (a band written into a copy of the page before), a frame at the first
+  view also a fresh ``render_direct``; after a zoom its count against a
+  fresh page is printed (``ROADMAP.md`` queue 3). A band frame is one
+  launch of ``page()`` with 256 rows, a full frame one launch, a cached or
+  off-screen one none; config 5's band leg and the narrow session's first
+  two legs each band at least once. The band kernel, its
+  ``render_direct(band=)`` call and the splice are timed.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -195,6 +216,30 @@ NARROW_TEXT = "\n".join(
     "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(6))
 NARROW_SIZE = (640, 480)
 NARROW_EVENTS = (("scroll", -0.5, (0.1, 0.1)), ("drag", 0.01, 0.005), ("scroll", 0.5, (0.0, 0.2)))
+
+# the edit phase (the session's char_input and backspace, the dirty-strip
+# splice): the edit script of tools/tpu_probes/tpu_interactive_edit.py:27-89,
+# 24 edits, every fourth a backspace of one cluster, else one of "abcdefgh",
+# then 12 zoom/pan frames; legs (name, zoom before the leg's edits, edits):
+# config 5's session at the first view, after scroll(0.5, (0.1, 0.1)) and
+# after scroll(-8.0, (0, 0)). At 1920 x 1080 a line is 1,117 rows tall at the
+# first view, so no edit fits the 256-row band until the page is zoomed out
+# by ~9.4 steps: the "band" leg zooms out by 2 more and drags the last line
+# up to where the first line was.
+EDIT_FRAMES = 24
+ZOOM_PAN_FRAMES = 12
+EDIT_LEGS = (("first", None, EDIT_FRAMES), ("zoom-in", (0.5, (0.1, 0.1)), 8),
+             ("zoom-out", (-8.0, (0.0, 0.0)), 4), ("band", (-2.0, (0.0, 0.0)), 8))
+# a spliced page equals a fresh one at the first view; after a zoom a band's
+# rows may differ from the full page's, in both packages (ROADMAP.md queue 3)
+EDIT_FRESH_LEGS = ("first",)
+# the band path at the first view and after the zoom-in: config 5's first
+# two lines on 480 x 480 (a line 279 rows tall; the last one on the page)
+EDIT_NARROW_TEXT = "\n".join(CONFIG5_TEXT.split("\n")[:2])
+EDIT_NARROW_SIZE = (480, 480)
+# the probe's 10k-character page: PARA x 150 on 1920 x 1080, default options
+PROBE_PARA = "The quick brown fox jumps over the lazy dog, flying off 0123456789."
+PROBE_TEXT = "\n".join(PROBE_PARA for _ in range(150))
 
 # the sharded phase: 4-shard meshes (glyphs, 2 x 2 glyphs x rows, row bands)
 # laid over the visible cards round robin, the dry runs' mesh and processes
@@ -596,6 +641,255 @@ def roofline_phase(dev, record, ascii256):
             "replaces": "tools/tpu_probes/tpu_roofline.py:59", "launches": launches,
             "max_abs_err": max_err, "mix": mix, **mixes.pop(mix), "library_ms": None,
             "mixes": mixes, **result, "operations_bound_at_measured_fp32_ms": at_rate}
+
+
+def probe_edit(sess, i) -> str:
+    """The probe's ``i``-th edit: every fourth a backspace, else a letter."""
+    if i % 4 == 3:
+        sess.backspace()
+        return "backspace"
+    sess.char_input("abcdefgh"[i % 8])
+    return "char_input"
+
+
+def edit_frame(sess, log, leg, op, relayout_ms=None):
+    """A frame of an edit session, logged: the page (a host array), its
+    layout and view, the path it took, its band, the page kernel's launches
+    in it and its time (``stats()``'s, the page to the host included). The
+    band is ``_dirty_band`` of the span the frame consumes; the path is told
+    from the session's cache around the frame: a cached or off-screen frame
+    keeps the cached page, a band frame replaces it under the same view
+    state with MSAA and debug off, any other frame is a full one."""
+    pending, state, cached = sess._pending_dirty, sess._page_state, sess._page_dev
+    band = sess._dirty_band(*pending) if pending not in ("all", ()) else None
+    before = page.launches, page.msaa_launches
+    frame = sess.frame()
+    if sess._page_dev is cached:
+        path, band = ("cached" if pending == () else "offscreen"), None
+    elif (band not in (None, (0, 0)) and sess._page_state == state
+          and not sess.msaa and not sess.debug):
+        path = "band"
+    else:
+        path, band = "full", None
+    log.append(dict(leg=leg, op=op, path=path, band=band,
+                    launches=(page.launches - before[0], page.msaa_launches - before[1]),
+                    frame_ms=sess.frame_ms[-1], relayout_ms=relayout_ms, frame=frame,
+                    layout=sess.layout, view=sess.view))
+
+
+def run_edit_legs(sess, legs):
+    """The first frame, then each leg: its zoom with a frame (the band leg
+    also drags the last line to the first line's place, with a frame), then
+    its edits with a frame after each, the re-layout timed apart."""
+    log = []
+    edit_frame(sess, log, "first", "first")
+    for leg, zoom, edits in legs:
+        if zoom is not None:
+            sess.scroll(*zoom)
+            edit_frame(sess, log, leg, "zoom")
+        if leg == "band":
+            lines = sess.text.count("\n")
+            lh = sess._layout_engine._line_height()
+            sess.drag(0.0, lines * lh * sess.view.scale[1] * sess.view.aspect_ratio)
+            edit_frame(sess, log, leg, "drag")
+        for i in range(edits):
+            t0 = time.perf_counter()
+            op = probe_edit(sess, i)
+            edit_frame(sess, log, leg, op, (time.perf_counter() - t0) * 1e3)
+    return log
+
+
+def probe_run(font, dev, incremental):
+    """The probe's 10k-character session: two frames, the 24 edits, then 12
+    zoom/pan frames, each logged; with ``incremental`` off, every edit lays
+    the whole text out again (as the probe sets it). Returns the probe's
+    medians with the paths of the edit frames, the log and the session."""
+    sess = InteractiveSession(font, PROBE_TEXT, *CONFIG5_SIZE, dev)
+    if not incremental:
+        sess._layout_engine._mergeable = False
+    log = []
+    edit_frame(sess, log, "start", "first")
+    edit_frame(sess, log, "start", "repeated")
+    for i in range(EDIT_FRAMES):
+        t0 = time.perf_counter()
+        op = probe_edit(sess, i)
+        edit_frame(sess, log, "edit", op, (time.perf_counter() - t0) * 1e3)
+    for i in range(ZOOM_PAN_FRAMES):
+        if i % 3 == 0:
+            sess.scroll(0.5 if i % 2 else -0.5, (0.1, 0.1))
+        else:
+            sess.drag(0.01, 0.005)
+        edit_frame(sess, log, "zoom-pan", "zoom" if i % 3 == 0 else "drag")
+    edits = [f for f in log if f["leg"] == "edit"]
+    result = dict(
+        incremental=incremental, chars=len(sess.text),
+        edit_host_relayout_ms=statistics.median(f["relayout_ms"] for f in edits),
+        edit_frame_ms=statistics.median(f["frame_ms"] for f in edits),
+        edit_total_ms=statistics.median(f["relayout_ms"] + f["frame_ms"] for f in edits),
+        zoom_pan_ms=statistics.median(f["frame_ms"] for f in log if f["leg"] == "zoom-pan"),
+        paths={p: sum(f["path"] == p for f in edits) for p in ("band", "full", "offscreen")})
+    return result, log, sess
+
+
+def check_edit_log(font, name, log, size, dev, fresh_legs=()):
+    """Each logged frame against the plain version: the session's cache
+    replayed with ``page_ref`` (a full frame its whole page, a band frame
+    its band written into a copy of the page before) on every pixel, and
+    against a fresh ``render_direct`` of its layout and view, which it must
+    equal in ``fresh_legs``; the page kernel's launches per path. Records
+    each frame's count against the fresh page."""
+    w, h = size
+    expect = None
+    for k, f in enumerate(log):
+        what = f"{name} {f['leg']} frame {k} ({f['op']}, {f['path']})"
+        frame = torch.from_numpy(f["frame"]).to(dev)
+        check(frame.shape == (h, w) and frame.dtype == torch.uint8, f"{what}: shape")
+        renderer = PageRenderer(font, f["layout"], w, h, dev)
+        inputs = renderer.page_inputs(f["view"])
+        if f["path"] == "full":
+            expect = page_ref.direct_page(*inputs, page_h=h, page_w=w)
+        elif f["path"] == "band":
+            y0, rows = f["band"]
+            check(rows == InteractiveSession._BAND_H, f"{what}: a band of {rows} rows")
+            expect = expect.clone()
+            expect[y0:y0 + rows] = page_ref.direct_page(*inputs, y0, page_h=h, page_w=w,
+                                                        out_h=rows)
+        want = (1, 0) if f["path"] in ("full", "band") else (0, 0)
+        check(f["launches"] == want, f"{what}: launched (page, page_msaa) {f['launches']}")
+        diff = int((frame != expect).sum())
+        check(diff == 0, f"{what}: {diff} pixels differ from page_ref's spliced page")
+        f["fresh_diff"] = int((frame != renderer.render_direct(f["view"])).sum())
+        if f["leg"] in fresh_legs:
+            check(f["fresh_diff"] == 0,
+                  f"{what}: {f['fresh_diff']} pixels differ from a fresh render_direct")
+
+
+def edit_summary(log):
+    """Per leg: its frames by path, and the medians of its edit frames'
+    re-layout and frame times (ms) with their band frames' frame time."""
+    out = {}
+    for leg in dict.fromkeys(f["leg"] for f in log):
+        frames = [f for f in log if f["leg"] == leg]
+        edits = [f for f in frames if f["relayout_ms"] is not None]
+        bands = [f["frame_ms"] for f in edits if f["path"] == "band"]
+        out[leg] = dict(
+            paths={p: sum(f["path"] == p for f in edits)
+                   for p in ("band", "full", "offscreen", "cached")},
+            edits=len(edits),
+            relayout_ms=statistics.median(f["relayout_ms"] for f in edits) if edits else None,
+            edit_frame_ms=statistics.median(f["frame_ms"] for f in edits) if edits else None,
+            band_frame_ms=statistics.median(bands) if bands else None,
+            fresh_diff=[f["fresh_diff"] for f in frames])
+    return out
+
+
+def band_timings(font, f, size, dev):
+    """The band of logged frame ``f``: the page kernel on it (graph replays)
+    beside the whole page at the same view, its ``render_direct(band=)``
+    call, the splice (a copy of the page with the band written in; graph
+    replays and calls), the plain version and the bound."""
+    w, h = size
+    renderer = PageRenderer(font, f["layout"], w, h, dev)
+    view, (y0, rows) = f["view"], f["band"]
+    inputs = renderer.page_inputs(view)
+    page_dev = torch.from_numpy(f["frame"]).to(dev)
+    strip = page_dev[y0:y0 + rows].clone()
+
+    def splice():
+        out = page_dev.clone()
+        out[y0:y0 + rows] = strip
+        return out
+
+    ops, needed, crossings = page_work(*inputs, y0, page_h=h, page_w=w, out_h=rows)
+    b_ms, bound_by = bound_ms(page_bytes(len(inputs[0]), len(inputs[2]), rows, w), ops)
+    return dict(
+        y0=y0, rows=rows,
+        ms=graph_ms(lambda: page.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows)),
+        full_page_ms=graph_ms(lambda: page.direct_page(*inputs, page_h=h, page_w=w)),
+        call_ms=cuda_ms(lambda: renderer.render_direct(view, band=(y0, rows)), inner=10),
+        splice_ms=graph_ms(splice), splice_call_ms=cuda_ms(splice, inner=10),
+        plain_ms=cuda_ms(lambda: page_ref.direct_page(*inputs, y0, page_h=h, page_w=w,
+                                                      out_h=rows), inner=1, reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=bound_by, bound_ops=ops, needed_pairs=needed,
+        crossings=crossings)
+
+
+def edit_phase(dev, font, zoom_pan_ms):
+    """The edit path: config 5's session and the narrow one through their
+    legs, and the probe's 10k-character page with the incremental layout on
+    and off, with the launch counts set to 0 just before and read just
+    after; then every frame checked, the band kernel and the splice timed.
+    ``zoom_pan_ms`` is config 5's zoom/pan frame time (its ``stats()``).
+    Returns the page kernel's entry additions and its launches."""
+    sess5 = InteractiveSession(font, CONFIG5_TEXT, *CONFIG5_SIZE, dev)
+    sessn = InteractiveSession(font, EDIT_NARROW_TEXT, *EDIT_NARROW_SIZE, dev)
+    reset_counts()
+    log5 = run_edit_legs(sess5, EDIT_LEGS)
+    logn = run_edit_legs(sessn, EDIT_LEGS[:3])
+    probe = {key: probe_run(font, dev, key == "incremental")
+             for key in ("incremental", "full_relayout")}
+    torch.cuda.synchronize()
+    launches = counts()
+    logs = {"config5": log5, "narrow": logn,
+            **{f"probe10k_{key}": run[1] for key, run in probe.items()}}
+    logged = sum(f["launches"][0] for log in logs.values() for f in log)
+    band_launches = sum(f["path"] == "band" for log in logs.values() for f in log)
+    check(launches["page"] == logged and band_launches > 0,
+          f"the edit path launched {launches}, its frames {logged}, {band_launches} bands")
+    check(not any(v for k, v in launches.items() if k != "page"),
+          f"the edit path launched another kernel than page(): {launches}")
+    for name, log, legs in (("config5", log5, ("band",)), ("narrow", logn, ("first", "zoom-in"))):
+        for leg in legs:
+            n = sum(f["path"] == "band" for f in log if f["leg"] == leg)
+            check(n > 0, f"{name} {leg} leg: no frame took the band path")
+    print(f"edit path: {launches['page']} page kernel launches, {band_launches} of them 256-row "
+          f"bands; {json.dumps(launches)}")
+
+    check_edit_log(font, "config5", log5, CONFIG5_SIZE, dev, EDIT_FRESH_LEGS)
+    check_edit_log(font, "narrow", logn, EDIT_NARROW_SIZE, dev, EDIT_FRESH_LEGS)
+    for key, (result, log, sess) in probe.items():
+        check_edit_log(font, f"probe10k {key}", log, CONFIG5_SIZE, dev, ("start", "edit"))
+    a, b = (run[2].layout for run in probe.values())
+    check(a.slot_gids == b.slot_gids and np.array_equal(a.batch.segments, b.batch.segments)
+          and all(np.array_equal(x, y) for x, y in zip(a.instance_arrays(),
+                                                       b.instance_arrays())),
+          "probe10k: the incremental layout differs from the whole one")
+    summary = {"config5": edit_summary(log5), "narrow": edit_summary(logn)}
+    for name, per_leg in summary.items():
+        for leg, rec in per_leg.items():
+            print(f"{name} edit leg {leg}: {rec['edits']} edits, paths {json.dumps(rec['paths'])}; "
+                  f"median re-layout {rec['relayout_ms']} ms, edit frame {rec['edit_frame_ms']} "
+                  f"ms (band frames {rec['band_frame_ms']}); pixels differing from a fresh page "
+                  f"per frame {rec['fresh_diff']}")
+    print("edit path: every frame equals page_ref's spliced page; config5 and narrow equal a "
+          f"fresh render_direct in the legs {EDIT_FRESH_LEGS}; probe10k's edit frames equal a "
+          "fresh render_direct; its incremental layout equals the whole one")
+
+    bands = {name: band_timings(font, [f for f in log if f["path"] == "band"][-1], size, dev)
+             for name, log, size in (("config5", log5, CONFIG5_SIZE),
+                                     ("narrow", logn, EDIT_NARROW_SIZE))}
+    # the prediction's case: a band of config 5's first view (rows 400-655)
+    first = dict(log5[0], band=PAGE_BAND)
+    bands["config5_first_view"] = band_timings(font, first, CONFIG5_SIZE, dev)
+    for name, t in bands.items():
+        print(f"{name} band ({t['y0']}, {t['rows']}): kernel {t['ms']:.4f} ms on the device "
+              f"({t['ms'] / t['full_page_ms']:.2f}x the whole page's {t['full_page_ms']:.4f}), "
+              f"render_direct(band=) {t['call_ms']:.4f} ms per call, splice {t['splice_ms']:.4f} "
+              f"ms on the device ({t['splice_call_ms']:.4f} per call), bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), plain version {t['plain_ms']:.3f} ms")
+    for key, (result, _, sess) in probe.items():
+        print(f"probe10k {key}: {json.dumps(result)}; session stats {json.dumps(sess.stats())}")
+    edit5 = [f["frame_ms"] for f in log5 if f["relayout_ms"] is not None]
+    print(f"config5 edit frames: median {statistics.median(edit5):.3f} ms, mean "
+          f"{statistics.fmean(edit5):.3f} ms over {len(edit5)}; zoom/pan frames (the page "
+          f"path's session) mean {zoom_pan_ms:.3f} ms; session stats {json.dumps(sess5.stats())}")
+    record = dict(
+        launches=launches["page"], band_launches=band_launches,
+        band=bands["config5"], narrow_band=bands["narrow"],
+        first_view_band=bands["config5_first_view"],
+        config5_edit_frame_ms=statistics.median(edit5), config5_zoom_pan_ms=zoom_pan_ms,
+        legs=summary, probe10k={key: run[0] for key, run in probe.items()})
+    return record, launches["page"]
 
 
 def main() -> None:
@@ -1279,6 +1573,9 @@ def main() -> None:
     # --- roofline probe (K13), once --------------------------------------------
     roofline_entry = roofline_phase(dev, record, atlases["ascii256"][:2])
 
+    # --- the edit path (K7 on 256-row bands), once -------------------------------
+    edit_record, edit_launches = edit_phase(dev, font, stats5["mean_ms"])
+
     # --- host baseline and the card ------------------------------------------
     batch, grids, _ = atlases["ascii256"]
     reps = []
@@ -1326,9 +1623,10 @@ def main() -> None:
         entry_of("loopblinn", "fontrx/kernels/loopblinn.py:314", lb_launches,
                  main_atlas="ascii128", sharded_launches=sharded_launches["loopblinn"],
                  sharded=shard_record["ascii128_loopblinn_glyphs4"]),
-        entry_of("page", "fontrx/kernels/winding_page.py:267", page_launches,
+        entry_of("page", "fontrx/kernels/winding_page.py:267", page_launches + edit_launches,
                  main_atlas="config5", sharded_launches=sharded_launches["page"],
-                 sharded=shard_record["config5_rows4"]),
+                 sharded=shard_record["config5_rows4"], page_path_launches=page_launches,
+                 edit=edit_record),
         entry_of("page_msaa", "fontrx/kernels/winding_page.py:537", msaa_launches,
                  main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
         entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,

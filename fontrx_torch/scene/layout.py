@@ -1,7 +1,7 @@
 """Text layout: code points -> per-instance glyph placements.
 
-A bounded copy of ``fontrx/scene/layout.py``: ``Instance``, ``TextLayout``
-and the default path of ``layout_text``, which is the reference's own
+A bounded copy of ``fontrx/scene/layout.py``: ``Instance``,
+``LazyInstances``, ``TextLayout`` and the default path of ``layout_text``, which is the reference's own
 ``addChar`` pipeline (``Appli.zig:318-351``) extended to several lines with
 the hhea line height. The text is normalized to NFC, each line becomes a
 stream of glyph indices, glyphs dedup by index into one packed batch, and
@@ -63,6 +63,32 @@ class Instance:
         return Transform(offset=(self.x, self.y))
 
 
+class LazyInstances:
+    """An array-backed instance sequence: it behaves like ``list[Instance]``
+    but holds the columns (slots int32 ``[N]``, offsets float64 ``[N, 2]``),
+    so batched consumers skip the objects. The incremental layout's merge
+    builds it; ``Instance`` objects are made only when someone indexes or
+    iterates."""
+
+    __slots__ = ("slots", "offsets")
+
+    def __init__(self, slots: np.ndarray, offsets: np.ndarray):
+        self.slots = slots
+        self.offsets = offsets
+
+    def __len__(self) -> int:
+        return int(self.slots.shape[0])
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        return Instance(int(self.slots[i]), float(self.offsets[i, 0]), float(self.offsets[i, 1]))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
 @dataclass(slots=True)
 class TextLayout:
     """A laid-out text run over a deduplicated glyph batch."""
@@ -70,14 +96,17 @@ class TextLayout:
     batch: PackedBatch
     slot_chars: list[int]  # code point per unique-glyph slot
     slot_gids: list[int]   # font glyph index per slot
-    instances: list[Instance]
+    instances: list[Instance] | LazyInstances
     width: float  # pen extent in font units
     height: float
 
     def instance_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """(slots int32 [N], offsets float32 [N, 2])."""
-        slots = np.array([i.glyph_slot for i in self.instances], np.int32)
-        offs = np.array([[i.x, i.y] for i in self.instances], np.float32)
+        li = self.instances
+        if isinstance(li, LazyInstances):
+            return li.slots, li.offsets.astype(np.float32).reshape(-1, 2)
+        slots = np.array([i.glyph_slot for i in li], np.int32)
+        offs = np.array([[i.x, i.y] for i in li], np.float32)
         return slots, offs.reshape(-1, 2)
 
 

@@ -180,13 +180,11 @@ class TestSession:
         assert stats["frames"] == 3 and stats["mean_ms"] >= stats["compute_ms"] > 0
 
     @pytest.mark.parametrize("call", [
-        "cycle_mode", "key c", "char_input", "backspace", "_set_text", "step_variation",
-        "set_axis", "key [", "key ]"])
+        "cycle_mode", "key c", "step_variation", "set_axis", "key [", "key ]"])
     def test_not_ported(self, font, call):
         sess = InteractiveSession(font, TEXT, *SIZE, "cpu")
         name, *arg = call.split()
-        args = {"char_input": ("x",), "_set_text": ("x",), "step_variation": (1,),
-                "set_axis": ("wght", 500.0)}.get(name, tuple(arg))
+        args = {"step_variation": (1,), "set_axis": ("wght", 500.0)}.get(name, tuple(arg))
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(sess, name)(*args)
 

@@ -48,6 +48,8 @@ MODULES = [
     "fontrx_torch.font.charmap",
     "fontrx_torch.font.glyph",
     "fontrx_torch.font.font",
+    "fontrx_torch.font.uax29",
+    "fontrx_torch.font._uax29_data",
     "fontrx_torch.geometry",
     "fontrx_torch.geometry.triangulate",
     "fontrx_torch.geometry.triangulated_glyph",
@@ -66,6 +68,7 @@ MODULES = [
     "fontrx_torch.scene",
     "fontrx_torch.scene.transform",
     "fontrx_torch.scene.layout",
+    "fontrx_torch.scene.incremental",
     "fontrx_torch.scene.page",
     "fontrx_torch.scene.interactive",
     "chip_smoke",
