@@ -1,7 +1,7 @@
 """Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
 atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths, its
-roofline probe and the interactive session's edit path once on one CUDA
-card, and check them.
+roofline probe, the interactive session's edit path and the command line
+once on one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -95,6 +95,27 @@ just after:
   off-screen one none; config 5's band leg and the narrow session's first
   two legs each band at least once. The band kernel, its
   ``render_direct(band=)`` call and the splice are timed.
+- **command line**, last (``python -m fontrx_torch``, called in process as
+  ``fontrx_torch.cli.main.main`` on the card's default backend): 'A' at 256
+  px filled (BASELINE config 1) and gray, "Hello, World!" at 64 px as 2 x 2
+  coverage (config 2), sdf, smooth (``--embolden 1.5``) and outline
+  (``--stroke 3``), the triangulation of 'Q' at 128 px, of 'Ç' (its outline
+  crosses itself: the winding fallback) and of 'Q' with ``-d`` (host NumPy,
+  no launch), each once and 5 times warm; then ``-i`` on config 5's text
+  from a StringIO stdin (a frame, a zoom, ``m``, ``m`` and one typed
+  character). Each call's launches are counted (fill and gray one
+  ``page()``, coverage one ``coverage.cu``, the SDF modes one ``winding()``
+  and one ``sdf.cu``, the triangulation one ``loopblinn.cu`` or one
+  ``winding()``; the loop three ``page()`` and one ``page_msaa()``) and no
+  plain version may run. Each QOI's bytes equal the same argv's with
+  ``--backend cpu``, config 1's page equals the oracle's fill on the page's
+  own samples, and each frame of the loop equals the plain version's page;
+  the values that a standard QOI decoder reads wrong in each file are
+  counted (the encoder's index-slot fault, ROADMAP queue 3). The calls are
+  timed: the first in the process, the median of the warm ones split into
+  the font open, layout, render call, copy to host and QOI encode (host
+  clock, synchronised), the kernels from CUDA-graph replays, and config 1 in
+  a new ``python -m fontrx_torch`` process (the kernels already built).
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -116,18 +137,24 @@ replayed from a CUDA graph (its device time) and called through its wrapper
 (what a caller waits for, host launch overhead included), and each session's
 frames as its user sees them (``stats()``: the page to the host included).
 Any failure raises and exits non-zero. The last two lines are JSON: the kernels' record (each
-kernel's times beside its bound, from ``fontrx_torch.bound``, and the host
-pack times), then ``{"ok": true, "device": {...}}``.
+kernel's times beside its bound, from ``fontrx_torch.bound``, its launches
+with the command line's among them, the host pack times and the command
+line's record), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
 import multiprocessing
 import os
 import pathlib
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from itertools import repeat
@@ -141,6 +168,7 @@ from fontrx_torch.bench.timing import cuda_ms, graph_ms
 from fontrx_torch.bound import (
     bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes, page_msaa_work,
     page_work, sdf_work, winding_work, window_bytes, window_work)
+from fontrx_torch.cli import main as cli
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
 from fontrx_torch.engine import sharding
@@ -240,6 +268,39 @@ EDIT_NARROW_SIZE = (480, 480)
 # the probe's 10k-character page: PARA x 150 on 1920 x 1080, default options
 PROBE_PARA = "The quick brown fox jumps over the lazy dog, flying off 0123456789."
 PROBE_TEXT = "\n".join(PROBE_PARA for _ in range(150))
+
+# the command line (python -m fontrx_torch), in process, last: (name, the argv
+# after -f DejaVu Sans, the kernels one call launches). BASELINE config 1 ('A'
+# at 256 px, fill) and config 2 ("Hello, World!" at 64 px, 2 x 2 coverage),
+# then every other ported mode; 'Ç' is a glyph whose outline crosses itself,
+# so its triangulation falls back to the winding fill
+CLI_TEXT = "Hello, World!"
+CLI_CASES = (
+    ("config1", ["-t", "A", "-s", "256"], {"page": 1}),
+    ("gray", ["-t", "A", "-s", "256", "-m", "gray"], {"page": 1}),
+    ("config2", ["-t", CLI_TEXT, "-s", "64", "-m", "coverage", "--samples", "2"],
+     {"coverage": 1}),
+    ("sdf", ["-t", CLI_TEXT, "-s", "64", "-m", "sdf"], {"winding": 1, "sdf": 1}),
+    ("smooth", ["-t", CLI_TEXT, "-s", "64", "-m", "smooth", "--embolden", "1.5"],
+     {"winding": 1, "sdf": 1}),
+    ("outline", ["-t", CLI_TEXT, "-s", "64", "-m", "outline", "--stroke", "3"],
+     {"winding": 1, "sdf": 1}),
+    ("triangulation", ["-t", "Q", "-s", "128", "-m", "triangulation"], {"loopblinn": 1}),
+    ("self_crossing", ["-t", "Ç", "-s", "128", "-m", "triangulation"], {"winding": 1}),
+    ("debug", ["-t", "Q", "-s", "128", "-m", "triangulation", "-d"], {}),
+)
+# the call also timed in a new python -m fontrx_torch process (the start-up of
+# Python, torch and the card is the same for every mode)
+CLI_COLD = "config1"
+CLI_WARM = 5  # warm in-process calls a case, after its first
+# the -i loop: config 5's text on 1920 x 1080, a zoom, m, one typed character
+CLI_SCRIPT = ("frame", "scroll 0.5 0.1 0.1", "frame", "key m", "frame", "key m", "type x",
+              "frame", "stats", "quit")
+# the plain versions a wrapper runs on a CPU tensor: none may run on the card
+PLAIN_FUNCTIONS = ((winding_ref, "winding_batch"), (coverage_ref, "coverage_batch"),
+                   (sdf_ref, "sdf_batch"), (sdf_ref, "sdf_from_winding"),
+                   (loopblinn_ref, "loopblinn_batch"), (page_ref, "direct_page"),
+                   (page_ref, "direct_page_msaa"))
 
 # the sharded phase: 4-shard meshes (glyphs, 2 x 2 glyphs x rows, row bands)
 # laid over the visible cards round robin, the dry runs' mesh and processes
@@ -652,18 +713,20 @@ def probe_edit(sess, i) -> str:
     return "char_input"
 
 
-def edit_frame(sess, log, leg, op, relayout_ms=None):
-    """A frame of an edit session, logged: the page (a host array), its
-    layout and view, the path it took, its band, the page kernel's launches
-    in it and its time (``stats()``'s, the page to the host included). The
-    band is ``_dirty_band`` of the span the frame consumes; the path is told
-    from the session's cache around the frame: a cached or off-screen frame
-    keeps the cached page, a band frame replaces it under the same view
-    state with MSAA and debug off, any other frame is a full one."""
+def edit_frame(sess, log, leg, op, relayout_ms=None, frame_fn=None):
+    """A frame of an edit session, logged and returned: the page (a host
+    array), its layout, view and MSAA toggle, the path it took, its band,
+    the page kernels' launches in it and its time (``stats()``'s, the page
+    to the host included). The band is ``_dirty_band`` of the span the
+    frame consumes; the path is told from the session's cache around the
+    frame: a cached or off-screen frame keeps the cached page, a band frame
+    replaces it under the same view state with MSAA and debug off, any other
+    frame is a full one. ``frame_fn`` takes the frame (default
+    ``sess.frame``)."""
     pending, state, cached = sess._pending_dirty, sess._page_state, sess._page_dev
     band = sess._dirty_band(*pending) if pending not in ("all", ()) else None
     before = page.launches, page.msaa_launches
-    frame = sess.frame()
+    frame = (frame_fn or sess.frame)()
     if sess._page_dev is cached:
         path, band = ("cached" if pending == () else "offscreen"), None
     elif (band not in (None, (0, 0)) and sess._page_state == state
@@ -674,7 +737,8 @@ def edit_frame(sess, log, leg, op, relayout_ms=None):
     log.append(dict(leg=leg, op=op, path=path, band=band,
                     launches=(page.launches - before[0], page.msaa_launches - before[1]),
                     frame_ms=sess.frame_ms[-1], relayout_ms=relayout_ms, frame=frame,
-                    layout=sess.layout, view=sess.view))
+                    layout=sess.layout, view=sess.view, msaa=sess.msaa))
+    return frame
 
 
 def run_edit_legs(sess, legs):
@@ -733,11 +797,12 @@ def probe_run(font, dev, incremental):
 
 def check_edit_log(font, name, log, size, dev, fresh_legs=()):
     """Each logged frame against the plain version: the session's cache
-    replayed with ``page_ref`` (a full frame its whole page, a band frame
-    its band written into a copy of the page before) on every pixel, and
-    against a fresh ``render_direct`` of its layout and view, which it must
-    equal in ``fresh_legs``; the page kernel's launches per path. Records
-    each frame's count against the fresh page."""
+    replayed with ``page_ref`` (a full frame its whole page, the MSAA page
+    with ``m`` on, a band frame its band written into a copy of the page
+    before) on every pixel, and against a fresh ``render_direct`` of its
+    layout, view and toggle, which it must equal in ``fresh_legs``; the page
+    kernels' launches per path. Records each frame's count against the fresh
+    page."""
     w, h = size
     expect = None
     for k, f in enumerate(log):
@@ -747,18 +812,19 @@ def check_edit_log(font, name, log, size, dev, fresh_legs=()):
         renderer = PageRenderer(font, f["layout"], w, h, dev)
         inputs = renderer.page_inputs(f["view"])
         if f["path"] == "full":
-            expect = page_ref.direct_page(*inputs, page_h=h, page_w=w)
+            expect = (page_ref.direct_page_msaa(*inputs, page_h=h, page_w=w) if f["msaa"]
+                      else page_ref.direct_page(*inputs, page_h=h, page_w=w))
         elif f["path"] == "band":
             y0, rows = f["band"]
             check(rows == InteractiveSession._BAND_H, f"{what}: a band of {rows} rows")
             expect = expect.clone()
             expect[y0:y0 + rows] = page_ref.direct_page(*inputs, y0, page_h=h, page_w=w,
                                                         out_h=rows)
-        want = (1, 0) if f["path"] in ("full", "band") else (0, 0)
+        want = ((0, 1) if f["msaa"] else (1, 0)) if f["path"] in ("full", "band") else (0, 0)
         check(f["launches"] == want, f"{what}: launched (page, page_msaa) {f['launches']}")
         diff = int((frame != expect).sum())
         check(diff == 0, f"{what}: {diff} pixels differ from page_ref's spliced page")
-        f["fresh_diff"] = int((frame != renderer.render_direct(f["view"])).sum())
+        f["fresh_diff"] = int((frame != renderer.render_direct(f["view"], msaa=f["msaa"])).sum())
         if f["leg"] in fresh_legs:
             check(f["fresh_diff"] == 0,
                   f"{what}: {f['fresh_diff']} pixels differ from a fresh render_direct")
@@ -890,6 +956,235 @@ def edit_phase(dev, font, zoom_pan_ms):
         config5_edit_frame_ms=statistics.median(edit5), config5_zoom_pan_ms=zoom_pan_ms,
         legs=summary, probe10k={key: run[0] for key, run in probe.items()})
     return record, launches["page"]
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` while inside (a
+    classmethod's original comes bound to its class)."""
+    saved = vars(owner)[name]
+    setattr(owner, name, make(getattr(owner, name)))
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """While inside, count the calls of the plain versions that the kernels'
+    wrappers run on CPU tensors: yields a one-element list."""
+    count = [0]
+
+    def make(fn):
+        def call(*args, **kwargs):
+            count[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for module, name in PLAIN_FUNCTIONS:
+            stack.enter_context(patched(module, name, make))
+        yield count
+
+
+class CliStages:
+    """Host ms of a CLI call's stages: each wrapped function, synchronised,
+    adds its time to its stage in the newest row (``rows``, one a call) and
+    keeps its last call (``last``: function, arguments)."""
+
+    # (owner, attribute, stage)
+    WRAPPED = ((Font, "open", "font_open"), (cli, "layout_text", "layout"),
+               (TriangulatedGlyph, "from_glyph", "layout"),
+               (PageRenderer, "render_direct", "render"), (RasterEngine, "coverage_batch", "render"),
+               (RasterEngine, "sdf_batch", "render"), (RasterEngine, "winding_glyph", "render"),
+               (cli, "loopblinn_fill", "render"), (cli, "debug_render", "render"),
+               (cli, "_rgb", "to_host"), (cli, "encode_rgb", "encode"))
+    STAGES = ("font_open", "layout", "render", "to_host", "encode")
+
+    def __init__(self):
+        self.rows: list[dict] = []
+        self.last: dict = {}
+
+    def wrap(self, stage):
+        def make(fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                row = self.rows[-1]
+                row[stage] = row.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+                self.last[stage] = (fn, args, kwargs)
+                return out
+            return call
+        return make
+
+    @contextlib.contextmanager
+    def installed(self):
+        with contextlib.ExitStack() as stack:
+            for owner, name, stage in self.WRAPPED:
+                stack.enter_context(patched(owner, name, self.wrap(stage)))
+            yield self
+
+
+def cli_kernel_ms(render):
+    """The device ms (CUDA-graph replays) of the kernels that a CLI call's
+    render call ``(function, arguments)`` launched, on the same inputs;
+    ``None`` for ``-d`` (host NumPy)."""
+    fn, args, kwargs = render
+    if fn.__name__ == "render_direct":
+        renderer, view = args
+        inputs = renderer.page_inputs(view)
+        return graph_ms(lambda: page.direct_page(*inputs, page_h=renderer.height,
+                                                 page_w=renderer.width))
+    if fn.__name__ in ("coverage_batch", "sdf_batch"):
+        engine, *batch = args
+        dev_args = to_device(*batch, engine.device)
+        kernel = coverage.coverage_batch if fn.__name__ == "coverage_batch" else sdf.sdf_batch
+        return graph_ms(lambda: kernel(*dev_args, **kwargs))
+    if fn.__name__ == "winding_glyph":
+        engine, segments, grid = args
+        dev_args = to_device(np.asarray(segments, np.float32)[None], [grid.min_x],
+                             [grid.max_y], grid.scale, engine.device)
+        return graph_ms(lambda: winding.winding_batch(*dev_args, height=grid.height,
+                                                      width=grid.width))
+    if fn.__name__ == "loopblinn_fill":
+        mesh, grid = args
+        dev_args = triangles_to_device(*loopblinn.pack_meshes([mesh]), [grid], kwargs["device"])
+        return graph_ms(lambda: loopblinn.loopblinn_batch(*dev_args, height=grid.height,
+                                                          width=grid.width))
+    return None
+
+
+def cli_cold_s(argv, out) -> float:
+    """Wall seconds of ``python -m fontrx_torch`` in a new process (torch's
+    import and the card's set-up included; the kernels are already built)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fontrx_torch", "-f", str(DEJAVU), *argv,
+                           "-o", str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m fontrx_torch {argv}: {proc.stderr[-2000:]}")
+    return secs
+
+
+def cli_interactive(tmp) -> tuple[list, str]:
+    """``python -m fontrx_torch -i`` on config 5's text through
+    ``CLI_SCRIPT`` from a StringIO stdin, each frame logged by
+    ``edit_frame``: the log and the last line printed."""
+    log = []
+    frame = InteractiveSession.frame
+    stdout = io.StringIO()
+    with (patched(InteractiveSession, "frame", lambda _: lambda sess: edit_frame(
+              sess, log, "cli", "frame", frame_fn=lambda: frame(sess))),
+          patched(sys, "stdin", lambda _: io.StringIO("\n".join(CLI_SCRIPT) + "\n")),
+          contextlib.redirect_stdout(stdout)):
+        check(cli.main(["-f", str(DEJAVU), "-t", CONFIG5_TEXT, "-i", "-o",
+                        str(tmp / "frame.qoi")]) == 0, "the -i loop failed")
+    return log, stdout.getvalue().strip().splitlines()[-1]
+
+
+def cli_phase(dev, tmp):
+    """The command line in process, as a user calls it (``cli.main``, the
+    card by default): each case of ``CLI_CASES`` once and ``CLI_WARM`` times
+    warm, then the ``-i`` loop, with the launch counts set to 0 just before
+    and read just after, and no plain version may run. Then each image is
+    held to the same argv with ``--backend cpu`` (equal QOI bytes), config
+    1's page to the oracle, the loop's frames to the plain version; the
+    values a standard QOI decoder reads wrong are counted, the kernels are
+    timed, and ``CLI_COLD`` also in a new process. Returns the record and
+    the launches by kernel."""
+    stages = CliStages()
+    runs = {}
+    reset_counts()
+    with counting_plain() as plain:
+        with stages.installed():
+            for name, argv, want in CLI_CASES:
+                before = counts()
+                calls_ms = []
+                for _ in range(1 + CLI_WARM):
+                    stages.rows.append({})
+                    t0 = time.perf_counter()
+                    check(cli.main(["-f", str(DEJAVU), *argv, "-o", str(tmp / f"{name}.qoi")])
+                          == 0, f"CLI {name} failed")
+                    calls_ms.append((time.perf_counter() - t0) * 1e3)
+                launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+                check(launched == {k: n * (1 + CLI_WARM) for k, n in want.items()},
+                      f"CLI {name}: {1 + CLI_WARM} calls launched {launched}, not {want} each")
+                runs[name] = dict(first_ms=calls_ms[0], warm_ms=statistics.median(calls_ms[1:]),
+                                  split={stage: statistics.median(
+                                      row.get(stage, 0.0) for row in stages.rows[-CLI_WARM:])
+                                      for stage in CliStages.STAGES},
+                                  render=stages.last["render"])
+        before = counts()
+        log, stats_line = cli_interactive(tmp)
+        i_launches = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    torch.cuda.synchronize()
+    launches = counts()
+    check(plain[0] == 0, f"the CLI ran a plain version {plain[0]} times on the card")
+    check(i_launches == {"page": 3, "page_msaa": 1},
+          f"the -i loop launched {i_launches}, not page() 3 and page_msaa() 1")
+    print(f"CLI: {json.dumps(launches)} launches, 0 plain-version runs")
+
+    record = {}
+    for name, argv, _ in CLI_CASES:
+        run = runs[name]
+        data = (tmp / f"{name}.qoi").read_bytes()
+        t0 = time.perf_counter()
+        check(cli.main(["-f", str(DEJAVU), *argv, "--backend", "cpu", "-o",
+                        str(tmp / f"{name}_cpu.qoi")]) == 0, f"CLI {name} --backend cpu failed")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got, want = qoi.decode(data), qoi.decode((tmp / f"{name}_cpu.qoi").read_bytes())
+        check(got.shape == want.shape, f"CLI {name}: shape {got.shape}, on the CPU {want.shape}")
+        steps = int(np.abs(got.astype(np.int16) - want).max())
+        check(data == (tmp / f"{name}_cpu.qoi").read_bytes(),
+              f"CLI {name}: its QOI differs from --backend cpu's ({steps} u8 steps)")
+        # what a standard viewer reads wrong (encode_rgb's index-slot fault)
+        misread = int((qoi.decode(data, strict=True) != got).sum())
+        if name == "config1":
+            renderer, view = run["render"][1]
+            q = page_ref.transform_segments(*renderer.page_inputs(view)).cpu().numpy()
+            h, w = renderer.height, renderer.width
+            ink = oracle.winding_at(q, np.arange(w, dtype=np.float32)[None, :],
+                                    (h - 1 - np.arange(h)).astype(np.float32)[:, None],
+                                    contract=False) != 0
+            check(np.array_equal(got[..., 0], np.where(ink, 255, 0)) and (got == got[..., :1]).all(),
+                  "config 1's page differs from the oracle fill")
+            print(f"CLI config1: the {h} x {w} page equals the oracle's fill on its samples "
+                  f"({int(ink.sum())} ink pixels)")
+        run.update(shape=list(got.shape), spec_decoder_misreads=misread, cpu_call_ms=cpu_ms,
+                   kernel_ms=cli_kernel_ms(run.pop("render")))
+        if name == CLI_COLD:
+            run["cold_s"] = cli_cold_s(argv, tmp / f"{name}_cold.qoi")
+            check((tmp / f"{name}_cold.qoi").read_bytes() == data,
+                  f"CLI {name}: the new process's image differs from the in-process one")
+        record[name] = run
+        print(f"CLI {name} ({' '.join(argv)}): {got.shape[1]} x {got.shape[0]}; first call "
+              f"{run['first_ms']:.2f} ms, warm median {run['warm_ms']:.2f} ms = "
+              + ", ".join(f"{k} {v:.3f}" for k, v in run["split"].items())
+              + (f" ms; kernel {run['kernel_ms']:.4f} ms on the device" if run["kernel_ms"]
+                 else " ms; no kernel")
+              + (f"; new process {run['cold_s']:.2f} s" if "cold_s" in run else "")
+              + f"; QOI bytes equal to --backend cpu's ({cpu_ms:.1f} ms on the CPU); "
+              f"a standard QOI decoder misreads {misread} values")
+
+    check_edit_log(Font.open(DEJAVU), "cli -i", log, CONFIG5_SIZE, dev)
+    check([f["launches"] for f in log] == [(1, 0), (1, 0), (0, 1), (1, 0)],
+          f"-i frames launched {[f['launches'] for f in log]}")
+    misreads = []
+    for n, f in enumerate(log):
+        data = (tmp / f"frame_{n:04d}.qoi").read_bytes()
+        rgb = qoi.decode(data)
+        check(np.array_equal(rgb, np.repeat(f["frame"][:, :, None], 3, axis=2)),
+              f"-i frame {n}: its QOI differs from the page")
+        misreads.append(int((qoi.decode(data, strict=True) != rgb).sum()))
+    stats = ast.literal_eval(stats_line)
+    check(stats["frames"] == len(log), f"-i stats: {stats_line}")
+    record["interactive"] = dict(launches=i_launches, frame_ms=[f["frame_ms"] for f in log],
+                                 spec_decoder_misreads=misreads, stats=stats)
+    print(f"CLI -i: {len(log)} frames of config 5 equal the plain version (MSAA after m), "
+          f"launches {json.dumps(i_launches)}, frame ms {record['interactive']['frame_ms']}, "
+          f"values a standard QOI decoder misreads {misreads}; {stats_line}")
+    return record, launches
 
 
 def main() -> None:
@@ -1576,6 +1871,10 @@ def main() -> None:
     # --- the edit path (K7 on 256-row bands), once -------------------------------
     edit_record, edit_launches = edit_phase(dev, font, stats5["mean_ms"])
 
+    # --- the command line (python -m fontrx_torch), once, in process ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_record, cli_launches = cli_phase(dev, pathlib.Path(tmp))
+
     # --- host baseline and the card ------------------------------------------
     batch, grids, _ = atlases["ascii256"]
     reps = []
@@ -1597,7 +1896,8 @@ def main() -> None:
         return {
             "name": kname, "route": "cuda",
             "source": source or f"fontrx_torch/csrc/{kname}.cu",
-            "replaces": replaces, **extra, "launches": launches,
+            "replaces": replaces, **extra, "launches": launches + cli_launches[kname],
+            "cli_launches": cli_launches[kname],
             "max_abs_err": max_err[kname],
             # the main atlas in the main keys, the other atlases beside them
             **main, "library_ms": None,
@@ -1632,7 +1932,7 @@ def main() -> None:
         entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,
                  main_atlas="cjk64", source="fontrx_torch/csrc/winding.cu"),
         roofline_entry,
-    ], "host_pack_s": pack_s, "dryruns": shard_record["dryruns"]}))
+    ], "host_pack_s": pack_s, "dryruns": shard_record["dryruns"], "cli": cli_record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

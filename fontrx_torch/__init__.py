@@ -38,4 +38,48 @@ equal to its original by a test. It imports neither JAX nor anything of
 - ``convert``             host batches and grids to tensors on a device
 - ``entry``               ``entry()``: the raster step and an example batch;
   ``dryrun_multichip`` and ``dryrun_multihost``, the multi-device dry runs
+- ``cli``                 the command line, ``python -m fontrx_torch``
+  (``cli.config`` the flags, ``cli.main`` the modes and the ``-i`` loop)
+- ``render_text``         one call from text to an RGB image, through the
+  command line's modes
 """
+
+
+def render_text(font, text, *, size=256, mode="fill", engine=None, **options):
+    """One-call rendering: ``text`` -> uint8 RGB image array ``[H, W, 3]``
+    on the host.
+
+    ``font`` is a path, raw bytes, or an opened ``Font``; ``mode`` and
+    ``options`` are the command line's flags (``samples=3``,
+    ``mode="sdf"``, ``backend="cpu"``, ...), rendered by the same dispatch
+    as ``python -m fontrx_torch``. ``engine=None`` makes a ``RasterEngine``
+    on the device that ``backend`` names (default: the first CUDA device);
+    pass one to choose the device. An option the command line does not
+    have is a ``TypeError``; ``fallback``, ``variation`` and a layout
+    option away from its default raise ``NotImplementedError``, as their
+    flags do.
+
+    >>> img = render_text("DejaVuSans.ttf", "Hello", size=64)
+    >>> img.shape   # (H, W, 3) uint8
+    """
+    import dataclasses
+
+    from fontrx_torch.cli.config import Config
+    from fontrx_torch.cli.main import _render, check_options, engine_for
+    from fontrx_torch.font.font import Font
+
+    if isinstance(font, str):
+        font = Font.open(font)
+    elif isinstance(font, (bytes, bytearray)):
+        font = Font(bytes(font))
+
+    valid = {f.name for f in dataclasses.fields(Config)}
+    cli_only = {"interactive", "output", "serve", "font_file", "text", "cache"}
+    unknown = set(options) - (valid - cli_only)
+    if unknown:
+        raise TypeError(f"unknown render options: {sorted(unknown)}")
+    cfg = Config(font_file="<memory>", text=text, size=size, mode=mode, **options)
+    check_options(cfg)
+    if engine is None:
+        engine = engine_for(cfg.backend)
+    return _render(font, text, cfg, engine)

@@ -1,5 +1,5 @@
 """The CUDA Loop-Blinn triangle kernel (``csrc/loopblinn.cu``) and its
-wrapper.
+wrapper, with ``debug_render``, the host drawing of the triangle classes.
 
 The kernel replaces the TPU's triangle kernel,
 ``loopblinn.py::_make_lb_kernel`` (launcher ``loopblinn_pallas_batch``);
@@ -124,3 +124,42 @@ def loopblinn_fill(tri_glyph, grid, device=None) -> np.ndarray:
     args = triangles_to_device(tris, classes, [grid], dev)
     out = loopblinn_batch(*args, height=grid.height, width=grid.width)
     return np.where(out[0].cpu().numpy(), 255, 0).astype(np.uint8)
+
+
+def debug_render(tri_glyph, grid) -> np.ndarray:
+    """The triangle classes drawn for ``-d``: concave red, convex green,
+    solid blue; the kept side of each curve test at alpha 0.5, the
+    discarded side at 0.2; alpha-composited in triangle order over black.
+    uint8 ``[H, W, 3]``. Host NumPy, a copy of the original
+    (``fontrx/kernels/loopblinn.py:156-198``); no kernel runs."""
+    tris = _pack_triangle_arrays(tri_glyph)
+    classes = tri_glyph.classes
+    xs, ys = grid.sample_coords()
+    px = xs[None, :]
+    py = ys[:, None]
+    img = np.zeros((grid.height, grid.width, 3), np.float32)
+    colors = {0: (1.0, 0, 0), 1: (0, 1.0, 0), 2: (0, 0, 1.0)}
+    for tri, c in zip(tris, classes):
+        (ax, ay, au, av), (bx, by, bu, bv), (cx, cy, cu, cv) = tri
+        e0 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+        e1 = (cx - bx) * (py - by) - (cy - by) * (px - bx)
+        e2 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
+        area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+        if area == 0:
+            continue
+        sgn = np.sign(area)
+        inside = (e0 * sgn >= 0) & (e1 * sgn >= 0) & (e2 * sgn >= 0)
+        la, lb = e1 / area, e2 / area
+        lc = 1.0 - la - lb
+        u = la * au + lb * bu + lc * cu
+        v = la * av + lb * bv + lc * cv
+        f = (1 + u - v) ** 2
+        if c == 0:
+            kept = f >= 4 * u
+        elif c == 1:
+            kept = f <= 4 * u
+        else:
+            kept = np.ones_like(f, bool)
+        alpha = np.where(inside, np.where(kept, 0.5, 0.2), 0.0)[..., None]
+        img = img * (1 - alpha) + np.array(colors[int(c)]) * alpha
+    return np.clip(img * 255, 0, 255).astype(np.uint8)

@@ -139,7 +139,8 @@ def layout_text(font: Font, text: str, **options) -> TextLayout:
         if name not in UNPORTED:
             raise TypeError(f"layout_text() got an unexpected keyword argument {name!r}")
         if value != UNPORTED[name]:
-            raise NotImplementedError(f"layout_text({name}={value!r}) is not ported")
+            raise NotImplementedError(
+                f"layout_text({name}={value!r}) is not ported (ROADMAP item 7a)")
     if b"morx" in font.tables and b"GSUB" not in font.tables:
         raise NotImplementedError("a font shaped by its morx table is not ported")
 

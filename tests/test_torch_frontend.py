@@ -285,6 +285,37 @@ class TestQoi:
         np.testing.assert_array_equal(qoi.decode(data), rgb)
         np.testing.assert_array_equal(ref_qoi.decode(data), rgb)
 
+    @pytest.mark.parametrize("seed", range(3))
+    def test_encode_rgba_equals_reference(self, seed):
+        rng = np.random.default_rng(seed)
+        img = rng.integers(0, 256, (19, 27, 4)).astype(np.uint8)
+        img[3:6] = img[2]                    # runs
+        img[8, :, :3] = img[7, :, :3] + 1    # DIFF ops (alpha unchanged)
+        img[8, :, 3] = img[7, :, 3]
+        img[10] = img[9]
+        img[10, :, 1] += 20                  # LUMA ops
+        img[12, ::2, 3] = 0                  # alpha changes: RGBA ops
+        img[15] = img[5]                     # index ops
+        data = qoi.encode_rgba(img)
+        assert data == ref_qoi.encode_rgba(img)
+        np.testing.assert_array_equal(qoi.decode(data), img)
+        np.testing.assert_array_equal(ref_qoi.decode(data), img)
+        assert qoi.encode_rgba(img[:0]) == ref_qoi.encode_rgba(img[:0])
+
+    def test_black_after_gray_round_trips(self):
+        """``encode_rgb`` sends a black pixel that no run or DIFF reaches as
+        an index op into the zero-filled table (alpha 0), as the original
+        does; ``decode`` keeps alpha 255 in an RGB file, so the index ops
+        after it read what was written. The original's decoder takes the
+        table's alpha and reads this row wrong (``ROADMAP.md`` queue 3)."""
+        row = np.array([255, 43, 0, 28, 250, 255], np.uint8)
+        img = np.repeat(row[None, :, None], 3, axis=2)
+        data = qoi.encode_rgb(img)
+        assert data == ref_qoi.encode_rgb(img)
+        np.testing.assert_array_equal(qoi.decode(data), img)
+        assert ref_qoi.decode(data)[0, -1, 0] == 250
+        np.testing.assert_array_equal(qoi.decode(data, strict=True), ref_qoi.decode(data))
+
     def test_empty_and_bad_input(self):
         empty = np.zeros((0, 4, 3), np.uint8)
         assert qoi.encode_rgb(empty) == ref_qoi._encode_rgb_py(empty)

@@ -71,6 +71,10 @@ MODULES = [
     "fontrx_torch.scene.incremental",
     "fontrx_torch.scene.page",
     "fontrx_torch.scene.interactive",
+    "fontrx_torch.cli",
+    "fontrx_torch.cli.config",
+    "fontrx_torch.cli.main",
+    "fontrx_torch.__main__",
     "chip_smoke",
 ]
 
