@@ -1,7 +1,7 @@
 """Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
 atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths, its
-roofline probe, the interactive session's edit path and the command line
-once on one CUDA card, and check them.
+roofline probe, its row-banded strip atlas, the interactive session's edit
+path and the command line once on one CUDA card, and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -75,6 +75,16 @@ just after:
   under the data sheet's and the measured rates. Each mix's output equals
   the plain version bit for bit, and each kernel bound by operations above
   also gets its bound at the measured FP32 rate.
+- **row-banded strip atlas** (K5 and K6, ``winding_banded()``):
+  ``fontrx_torch.bench.banded``, the port of ``tools/tpu_probes/
+  tpu_banded.py``, ``tpu_dense_banded.py`` and ``tpu_cjk_banded.py``: the
+  6,022 glyphs of DejaVu Sans with 1-64 segments, x-sorted, at 64 px (two
+  glyphs a 128-row strip) and 32 px (four), and the CJK benchmark batch
+  (1000 x 288) at 64 and 32 px, each through ``winding_banded_batch``: four
+  launches of ``winding_banded()`` and nothing else, no plain version. Each
+  case's strips equal the plain version on the card and ``winding()`` per
+  glyph on every pixel, and sampled glyphs the oracle; both kernels are timed
+  beside their bounds.
 - **edit path**, last (the session's ``char_input`` and ``backspace``, the
   incremental layout and the dirty-strip splice: K7 on 256-row bands):
   config 5's session through the edit script of
@@ -162,6 +172,7 @@ from itertools import repeat
 import numpy as np
 import torch
 
+from fontrx_torch.bench import banded as banded_probe
 from fontrx_torch.bench import roofline as roofline_probe
 from fontrx_torch.bench.cjk import UPEM, make_batch
 from fontrx_torch.bench.timing import cuda_ms, graph_ms
@@ -300,7 +311,7 @@ CLI_SCRIPT = ("frame", "scroll 0.5 0.1 0.1", "frame", "key m", "frame", "key m",
 PLAIN_FUNCTIONS = ((winding_ref, "winding_batch"), (coverage_ref, "coverage_batch"),
                    (sdf_ref, "sdf_batch"), (sdf_ref, "sdf_from_winding"),
                    (loopblinn_ref, "loopblinn_batch"), (page_ref, "direct_page"),
-                   (page_ref, "direct_page_msaa"))
+                   (page_ref, "direct_page_msaa"), (winding_ref, "winding_banded_batch"))
 
 # the sharded phase: 4-shard meshes (glyphs, 2 x 2 glyphs x rows, row bands)
 # laid over the visible cards round robin, the dry runs' mesh and processes
@@ -317,6 +328,7 @@ def reset_counts() -> None:
         module.launches = 0
     page.msaa_launches = 0
     winding.windows_launches = 0
+    winding.banded_launches = 0
 
 
 def check(ok: bool, what: str) -> None:
@@ -476,7 +488,8 @@ def counts() -> dict:
     """Every kernel's launch count."""
     return {"winding": winding.launches, "coverage": coverage.launches, "sdf": sdf.launches,
             "loopblinn": loopblinn.launches, "page": page.launches,
-            "page_msaa": page.msaa_launches, "winding_windows": winding.windows_launches}
+            "page_msaa": page.msaa_launches, "winding_windows": winding.windows_launches,
+            "winding_banded": winding.banded_launches}
 
 
 def pad_batch(n, *arrays, fill=0):
@@ -561,7 +574,7 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
     launches = counts()
     # winding(): cjk64 on glyphs, cjk64 and ascii256 on 2 x 2, the SDF's sign
     want = {"winding": 4 * SHARDS, "coverage": SHARDS, "sdf": SHARDS, "loopblinn": SHARDS,
-            "page": SHARDS, "page_msaa": 0, "winding_windows": 0}
+            "page": SHARDS, "page_msaa": 0, "winding_windows": 0, "winding_banded": 0}
     check(launches == want, f"the sharded path launched {launches}, not {want}")
     print(f"sharded path: launches {json.dumps(launches)} (winding(): {SHARDS} shards each of "
           "cjk64 on glyphs, cjk64 on 2 x 2, ascii256 on 2 x 2, and the SDF's sign)")
@@ -625,7 +638,7 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
     dry = counts()
     n = DRYRUN_SHARDS
     want = {"winding": 4 * n, "coverage": n, "sdf": n, "loopblinn": n, "page": n,
-            "page_msaa": 0, "winding_windows": 0}
+            "page_msaa": 0, "winding_windows": 0, "winding_banded": 0}
     check(dry == want, f"dryrun_multichip({n}) launched {dry}, not {want}")
     t0 = time.perf_counter()
     gathered, host_launches = dryrun_multihost(*MULTIHOST)
@@ -702,6 +715,77 @@ def roofline_phase(dev, record, ascii256):
             "replaces": "tools/tpu_probes/tpu_roofline.py:59", "launches": launches,
             "max_abs_err": max_err, "mix": mix, **mixes.pop(mix), "library_ms": None,
             "mixes": mixes, **result, "operations_bound_at_measured_fp32_ms": at_rate}
+
+
+BANDED_ORACLE_STRIDE = 251  # every 251st glyph of each banded case against the oracle
+
+
+def banded_phase(dev):
+    """The row-banded strip atlas (K5 and K6 on ``winding_banded()``):
+    ``fontrx_torch.bench.banded``'s four cases, the strips of each through
+    ``winding_banded_batch`` once, with the launch counts set to 0 just before
+    and read just after: one launch of ``winding_banded()`` a case, no other
+    kernel and no plain version. Then each case's strips are held to the
+    plain version on the card and to ``winding()`` per glyph (the probe's
+    A/B), both on every pixel, and every ``BANDED_ORACLE_STRIDE``-th glyph to
+    the oracle; both kernels and the plain version are timed. Returns the
+    record by case, the launches, the largest error and the host seconds of
+    building the cases."""
+    t0 = time.perf_counter()
+    cases = banded_probe.cases()
+    build_s = time.perf_counter() - t0
+    inputs = {c.name: banded_probe.strip_inputs(c, dev) for c in cases}
+    reset_counts()
+    with counting_plain() as plain:
+        outs = {c.name: banded_probe.strips(c, inputs[c.name]) for c in cases}
+        torch.cuda.synchronize()
+    launches = counts()
+    check(plain[0] == 0, f"the banded path ran a plain version {plain[0]} times on the card")
+    check(launches == {**dict.fromkeys(launches, 0), "winding_banded": len(cases)},
+          f"the banded path launched {launches}, not winding_banded() {len(cases)} times")
+    print(f"banded path: {launches['winding_banded']} winding_banded() launches, nothing else, "
+          f"0 plain-version runs; host build of the cases {build_s:.3f} s")
+
+    record, max_err = {}, 0
+    for case in cases:
+        sargs, out = inputs[case.name], outs[case.name]
+        b = len(case.strip[0])
+        check(out.shape == (b, 128, case.size) and out.dtype == torch.int32,
+              f"{case.name} strip shape")
+        ref = winding_ref.winding_banded_batch(*sargs, width=case.size)
+        diff = int((out != ref).sum())
+        max_err = max(max_err, int((out - ref).abs().max()))
+        check(diff == 0, f"{case.name}: {diff} pixels differ from the plain version")
+        gargs = banded_probe.glyph_inputs(case, dev)
+        rec = banded_probe.measure(case, sargs, gargs, out, banded_probe.per_glyph(case, gargs))
+        check(rec["differ"] == 0,
+              f"{case.name}: {rec['differ']} pixels differ from winding() per glyph")
+        maps = banded_probe.strip_maps(case, out).cpu().numpy()
+        segs, live, min_x, max_y = case.glyph
+        sampled = range(0, case.glyphs, BANDED_ORACLE_STRIDE)
+        mism = 0
+        for i in sampled:
+            xs = (min_x[i] + np.arange(case.size)).astype(np.float32) / case.scale
+            ys = (max_y[i] - np.arange(case.size)).astype(np.float32) / case.scale
+            wo = oracle.winding_at(segs[i, : live[i]], xs[None, :], ys[:, None],
+                                   contract=False)
+            mism += int((wo != maps[i]).sum())
+        check(mism == 0, f"{case.name}: {mism} pixels differ from the oracle")
+        rec["plain_ms"] = cuda_ms(lambda: winding_ref.winding_banded_batch(*sargs, width=case.size),
+                                  inner=1, reps=3, warmup=1)
+        record[case.name] = rec
+        print(f"{case.name} [{rec['card']}]: {case.glyphs} glyphs in {b} strips of "
+              f"{rec['bands']} bands; 0 of {out.numel()} pixels differ from the plain version, 0 "
+              f"from winding() per glyph, 0 of {len(sampled) * case.size ** 2} from the oracle "
+              f"({len(sampled)} glyphs); inked {rec['ink']}; winding_banded() {rec['ms']:.4f} ms "
+              f"on the device, {rec['call_ms']:.4f} ms per wrapper call, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; {rec['bound_ops']} FP32 ops, "
+              f"{rec['bound_bytes']} B); winding() per glyph {rec['winding_ms']:.4f} ms, "
+              f"{rec['winding_call_ms']:.4f} ms per call, bound {rec['winding_bound_ms']:.5f} ms "
+              f"({rec['winding_bound_by']}); strip / per glyph "
+              f"{rec['ms'] / rec['winding_ms']:.3f}; plain version {rec['plain_ms']:.3f} ms")
+    print(f"banded phase: {time.perf_counter() - t0:.1f} s, the cases' build included")
+    return record, launches["winding_banded"], max_err, build_s
 
 
 def probe_edit(sess, i) -> str:
@@ -1868,6 +1952,10 @@ def main() -> None:
     # --- roofline probe (K13), once --------------------------------------------
     roofline_entry = roofline_phase(dev, record, atlases["ascii256"][:2])
 
+    # --- the row-banded strip atlas (K5, K6), once ------------------------------
+    (record["winding_banded"], banded_launches, max_err["winding_banded"],
+     pack_s["banded_cases"]) = banded_phase(dev)
+
     # --- the edit path (K7 on 256-row bands), once -------------------------------
     edit_record, edit_launches = edit_phase(dev, font, stats5["mean_ms"])
 
@@ -1931,6 +2019,9 @@ def main() -> None:
                  main_atlas="config5", source="fontrx_torch/csrc/page.cu", samples=SAMPLES),
         entry_of("winding_windows", "fontrx/kernels/winding_dense.py:673", windows_launches,
                  main_atlas="cjk64", source="fontrx_torch/csrc/winding.cu"),
+        entry_of("winding_banded", "fontrx/kernels/winding_pallas_v2.py:555", banded_launches,
+                 main_atlas="dejavu64", also_replaces="fontrx/kernels/winding_dense.py:393",
+                 source="fontrx_torch/csrc/winding.cu"),
         roofline_entry,
     ], "host_pack_s": pack_s, "dryruns": shard_record["dryruns"], "cli": cli_record}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,14 @@ only, as the stream defines its function, one placement per crossing and
 one sum per pixel (``window_work``); its bytes are the live copies, the
 window counts, the anchors and the int32 output (``window_bytes``).
 
+The row-banded strips (``winding_banded()`` in ``csrc/winding.cu``, K5 and
+K6) need, for each band, the root solves of the element's segments owned by
+that band on the band's rows only, one placement per crossing and one sum
+per pixel (``banded_work``): the same pairs as the per-glyph ``winding()``
+on the same glyphs. Their bytes are the owned segments that are not
+all-zero padding (the segments ``banded_work`` solves), every owner, each
+band's anchors and the int32 strip (``banded_bytes``).
+
 The direct page render (``csrc/page.cu``) needs, per segment of the
 em-space stream, its transform to page pixels (a multiply-add per
 coordinate, counted as two operations) and its constants as above; per
@@ -195,6 +203,63 @@ def window_bytes(counts, height: int, width: int) -> int:
     b, n_windows = counts.shape
     return (int(counts.sum()) * WINDOW_COPY_BYTES + b * n_windows * WINDOW_COUNT_BYTES
             + b * WINDOW_ANCHOR_BYTES + b * height * width * 4)
+
+
+# bytes of the banded strips: a segment's six float32 coordinates, its int32
+# owner, a band's two int32 anchors, an int32 pixel
+BANDED_SEGMENT_BYTES = 6 * 4
+BANDED_OWNER_BYTES = 4
+BANDED_ANCHOR_BYTES = 2 * 4
+
+
+def _live(segments):
+    """``[B, S]``: the segments that are not all zero (padding)."""
+    return np.asarray(segments, f32).any(axis=(2, 3))
+
+
+def _own_segments(segments, owners, band):
+    """The segments of each element whose owner is ``band`` and that are not
+    all zero (padding), packed to the front: ``(float32 [B, S, 3, 2],
+    counts [B])``, as ``solve_work`` takes them."""
+    seg = np.asarray(segments, f32)
+    mine = (np.asarray(owners) == band) & _live(seg)
+    order = np.argsort(~mine, axis=1, kind="stable")
+    return np.take_along_axis(seg, order[:, :, None, None], axis=1), mine.sum(axis=1)
+
+
+def banded_work(segments, owners, max_y, scale, *, width, sample_offset=(0.0, 0.0)):
+    """FP32 operations and crossings of the row-banded strips (K5 and K6's
+    function, ``winding_ref.winding_banded_batch``) on these inputs: each
+    band's own segments solved on its ``128/R`` rows as ``solve_work``
+    counts a solve, one placement per crossing and one sum per pixel.
+    ``segments`` float32 ``[B, S, 3, 2]``, ``owners`` ``[B, S]``, ``max_y``
+    ``[R, B]``, arrays or tensors. Returns ``(ops, crossings)``."""
+    max_y = torch.as_tensor(max_y).cpu().numpy()
+    owners = torch.as_tensor(owners).cpu().numpy()
+    seg = torch.as_tensor(segments).cpu().numpy()
+    r, b = max_y.shape
+    band_h = winding_ref.STRIP_ROWS // r
+    ops = crossings = 0
+    for k in range(r):
+        own, counts = _own_segments(seg, owners, k)
+        o, c = solve_work(own, counts, max_y[k], scale, height=band_h,
+                          row_offsets=[sample_offset[1]])
+        ops, crossings = ops + o, crossings + c
+    return ops + b * winding_ref.STRIP_ROWS * width, crossings
+
+
+def banded_bytes(segments, owners, bands: int, width: int) -> int:
+    """Bytes the row-banded strips must move, each input read once: 24 B per
+    segment that a band owns, 4 B per owner, 8 B of anchors per band and
+    element, and 4 B per output pixel. A segment whose owner is outside
+    ``[0, bands)``, or that is all zero (padding), adds nothing, so it need
+    not be read: the segments counted are those ``banded_work`` solves."""
+    owners = torch.as_tensor(owners).cpu().numpy()
+    b, s = owners.shape
+    live = _live(torch.as_tensor(segments).cpu().numpy())
+    owned = int(((owners >= 0) & (owners < bands) & live).sum())
+    return (owned * BANDED_SEGMENT_BYTES + b * s * BANDED_OWNER_BYTES
+            + bands * b * BANDED_ANCHOR_BYTES + b * winding_ref.STRIP_ROWS * width * 4)
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:

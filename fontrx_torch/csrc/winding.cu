@@ -1,7 +1,8 @@
 // Nonzero winding maps of quadratic glyph outlines, for Hopper (sm_90a).
 //
-// Replaces the two TPU Pallas kernels of the glyph fill path and the one of
-// the sharded path (fontrx_torch/engine/sharding.py):
+// Replaces six TPU Pallas kernels: K1, K2 and K4 here (the glyph fill path
+// and the sharded path, fontrx_torch/engine/sharding.py), K3 with the second
+// entry and K5 and K6 with the third (below):
 //   K1  fontrx/kernels/winding_pallas_v2.py::_make_v2_kernel (tiles > 128 px)
 //   K2  fontrx/kernels/winding_dense.py::_make_dense_kernel  (tiles <= 128 px)
 //   K4  fontrx/kernels/winding_pallas.py::_winding_kernel (launcher
@@ -56,6 +57,28 @@
 //   rows are still zeroed and scanned, so the time falls by less than the
 //   pairs do (PERF.md).
 //
+// A third entry, winding_banded(), replaces K5 and K6, the row-banded strip
+// atlas:
+//   K5  fontrx/kernels/winding_pallas_v2.py::winding_pallas_banded_batch
+//       (_make_v2_kernel(row_bands=R), row-major, W % 128 == 0)
+//   K6  fontrx/kernels/winding_dense.py::winding_dense_banded_batch
+//       (_make_dense_kernel(row_bands=R), column-major, W <= 128)
+// R glyphs share each element's 128-row strip: rows [k * 128/R, (k + 1) *
+// 128/R) are winding()'s map at band k's own anchors min_x[k][b], max_y[k][b]
+// over the element's segments whose owner is k; any other segment, an owner
+// outside [0, R) included, adds zero there. R is the anchors' first
+// dimension, so it is part of the data, not a knob. The TPU kernels mask each
+// foreign segment's crossings on every row; here one block per (element,
+// band, chunk of rows) COMPACTS the element's segments owned by its band into
+// the shared-memory chunk (a warp ballot and popc per 32 owners), so the
+// solve loop sees only the band's own segments and no thread solves a
+// foreign pair. Every owner is read once per band; there is no host regroup.
+// Their chunk cull and K6's x-window cull are exact and not carried over, and
+// neither are the TPU's lane layout and the transposed output: each band's
+// rows are written straight into out[b][k * 128/R + row][:]. Bound as
+// winding() is: its pairs are those of the per-glyph winding() on the same
+// glyphs.
+//
 // Float rules: the library is built with -fmad=false, so no multiply-add is
 // contracted (the oracle's contract=False mode), and without fast math, so
 // '/' and sqrtf round correctly and denormals are kept.
@@ -70,18 +93,69 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 16;        // rows per block, fewer when W is wide
 constexpr int kSegChunk = 64;       // segments staged per shared-memory chunk
+constexpr int kStripRows = 128;     // rows of a banded element's strip
 constexpr size_t kSmemLimit = 227 * 1024;
+
+static_assert(kSegChunk % 32 == 0 && kSegChunk <= kThreads, "a chunk is whole warps");
 
 struct SegmentChunk {
   float v[kSegChunk * 6];           // p0x p0y p1x p1y p2x p2y per segment
 };
 
-// One block's work in both kernels: the winding of the rows [row0, row0 +
-// rows) of one glyph from its segments gseg[0, S), written to out_rows (row
-// major, W columns). smem holds the segment chunk, cy[rows], cx[W] and
-// bucket[rows][W + 1].
-__device__ __forceinline__ void band_winding(const float* __restrict__ gseg, int S, int mx,
-                                             int my, float scale, float ox, float oy, int row0,
+// Stages the segments [s0, s0 + n) of a glyph's array into the chunk, as
+// they are; returns n.
+struct Contiguous {
+  const float* gseg;
+
+  __device__ __forceinline__ int operator()(float* v, int s0, int n) const {
+    for (int i = threadIdx.x; i < n * 6; i += kThreads) v[i] = gseg[(size_t)s0 * 6 + i];
+    return n;
+  }
+};
+
+// Stages those of the segments [s0, s0 + n) whose owner is `band`, packed to
+// the front of the chunk in their order; returns how many. Each of the first
+// kSegChunk threads reads one owner; a ballot per warp and its popc give each
+// owned segment its place. counts holds kSegChunk / 32 ints of shared memory.
+struct OwnedBy {
+  const float* gseg;
+  const int* owners;
+  int band;
+  int* counts;
+
+  __device__ __forceinline__ int operator()(float* v, int s0, int n) const {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    bool mine = false;
+    int pos = 0;
+    if (warp < kSegChunk / 32) {  // whole warps
+      mine = tid < n && owners[s0 + tid] == band;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (lane == 0) counts[warp] = __popc(m);
+      pos = __popc(m & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    int ns = 0;
+    for (int w = 0; w < kSegChunk / 32; ++w) {
+      if (w < warp) pos += counts[w];
+      ns += counts[w];
+    }
+    if (mine) {
+      const float* src = gseg + (size_t)(s0 + tid) * 6;
+      for (int i = 0; i < 6; ++i) v[pos * 6 + i] = src[i];
+    }
+    return ns;
+  }
+};
+
+// One block's work in every kernel: the winding of the rows [row0, row0 +
+// rows) of one glyph from the segments that `stage` puts in the chunk from
+// its array [0, S), written to out_rows (row major, W columns). smem holds
+// the segment chunk, cy[rows], cx[W] and bucket[rows][W + 1]. Every thread
+// calls stage, between two barriers.
+template <class Stage>
+__device__ __forceinline__ void band_winding(const Stage& stage, int S, int mx, int my,
+                                             float scale, float ox, float oy, int row0,
                                              int rows, int W, unsigned char* smem,
                                              int* __restrict__ out_rows) {
   SegmentChunk* chunk = reinterpret_cast<SegmentChunk*>(smem);
@@ -95,9 +169,8 @@ __device__ __forceinline__ void band_winding(const float* __restrict__ gseg, int
   for (int i = tid; i < rows * (W + 1); i += kThreads) bucket[i] = 0;
 
   for (int s0 = 0; s0 < S; s0 += kSegChunk) {
-    const int ns = min(kSegChunk, S - s0);
     __syncthreads();  // cx/bucket ready; the previous chunk fully consumed
-    for (int i = tid; i < ns * 6; i += kThreads) chunk->v[i] = gseg[(size_t)s0 * 6 + i];
+    const int ns = stage(chunk->v, s0, min(kSegChunk, S - s0));
     __syncthreads();
 
     for (int p = tid; p < ns * rows; p += kThreads) {
@@ -126,8 +199,8 @@ winding_kernel(const float* __restrict__ seg, const int* __restrict__ min_x,
   extern __shared__ unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int row0 = blockIdx.y * rows;
-  band_winding(seg + (size_t)b * S * 6, S, min_x[b], max_y[b], scale, ox, oy, row0,
-               min(rows, H - row0), W, smem_raw, out + ((size_t)b * H + row0) * W);
+  band_winding(Contiguous{seg + (size_t)b * S * 6}, S, min_x[b], max_y[b], scale, ox, oy,
+               row0, min(rows, H - row0), W, smem_raw, out + ((size_t)b * H + row0) * W);
 }
 
 // winding_windows(): one block per (glyph, window), the window's live copies
@@ -142,8 +215,31 @@ winding_windows_kernel(const float* __restrict__ seg, const int* __restrict__ co
   const int b = bw / nw;
   const int row0 = (bw - b * nw) * win_rows;
   const int n = min(max(counts[bw], 0), cap);
-  band_winding(seg + (size_t)bw * cap * 6, n, min_x[b], max_y[b], scale, ox, oy, row0,
-               min(win_rows, H - row0), W, smem_raw, out + ((size_t)b * H + row0) * W);
+  band_winding(Contiguous{seg + (size_t)bw * cap * 6}, n, min_x[b], max_y[b], scale, ox, oy,
+               row0, min(win_rows, H - row0), W, smem_raw, out + ((size_t)b * H + row0) * W);
+}
+
+// The ballot counts of OwnedBy, ahead of band_winding's shared memory.
+constexpr size_t kCountBytes = 16;
+static_assert(kCountBytes >= kSegChunk / 32 * sizeof(int), "room for the ballot counts");
+
+// winding_banded(): one block per (element, band, chunk of `rows` rows of
+// the band's band_h), the element's segments owned by the band.
+__global__ void __launch_bounds__(kThreads)
+winding_banded_kernel(const float* __restrict__ seg, const int* __restrict__ owners,
+                      const int* __restrict__ min_x, const int* __restrict__ max_y,
+                      float scale, float ox, float oy, int B, int S, int band_h, int rows,
+                      int chunks, int W, int* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int k = blockIdx.y / chunks;
+  const int row0 = (blockIdx.y - k * chunks) * rows;  // in the band
+  const OwnedBy stage{seg + (size_t)b * S * 6, owners + (size_t)b * S, k,
+                      reinterpret_cast<int*>(smem_raw)};
+  const size_t anchor = (size_t)k * B + b;
+  band_winding(stage, S, min_x[anchor], max_y[anchor], scale, ox, oy, row0,
+               min(rows, band_h - row0), W, smem_raw + kCountBytes,
+               out + ((size_t)b * kStripRows + k * band_h + row0) * W);
 }
 
 }  // namespace
@@ -196,5 +292,34 @@ extern "C" cudaError_t winding_windows(const float* seg, const int* counts, cons
   }
   winding_windows_kernel<<<(unsigned)(B * nw), kThreads, smem, stream>>>(
       seg, counts, min_x, max_y, scale, ox, oy, nw, cap, win_rows, H, W, out);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t winding_banded(const float* seg, const int* owners, const int* min_x,
+                                      const int* max_y, float scale, float ox, float oy,
+                                      int B, int S, int R, int W, int* out,
+                                      cudaStream_t stream) {
+  if (B < 0 || S < 0 || R < 1 || kStripRows % R != 0 || W < 0 || !(scale > 0.0f))
+    return cudaErrorInvalidValue;
+  if (B == 0 || W == 0) return cudaSuccess;
+
+  const int band_h = kStripRows / R;
+  const size_t fixed = kCountBytes + sizeof(SegmentChunk) + (size_t)W * sizeof(float);
+  const size_t per_row = sizeof(float) + (size_t)(W + 1) * sizeof(int);
+  if (fixed + per_row > kSmemLimit) return cudaErrorInvalidValue;
+  int rows = (int)((kSmemLimit - fixed) / per_row);
+  if (rows > kMaxRows) rows = kMaxRows;
+  if (rows > band_h) rows = band_h;
+  const size_t smem = fixed + (size_t)rows * per_row;
+  const int chunks = (band_h + rows - 1) / rows;
+
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        winding_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((unsigned)B, (unsigned)(R * chunks));
+  winding_banded_kernel<<<grid, kThreads, smem, stream>>>(
+      seg, owners, min_x, max_y, scale, ox, oy, B, S, band_h, rows, chunks, W, out);
   return cudaGetLastError();
 }

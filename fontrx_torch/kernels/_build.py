@@ -51,6 +51,14 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int,                          # H, W
              ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
         ),
+        "winding_banded": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p,                    # seg, owners
+             ctypes.c_void_p, ctypes.c_void_p,                    # min_x, max_y
+             ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, R, W
+             ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+        ),
     },
     "coverage": {"coverage": (
         ctypes.c_int,

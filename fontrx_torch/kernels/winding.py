@@ -4,8 +4,9 @@
 ``winding_pallas_v2.py::_make_v2_kernel`` and
 ``winding_dense.py::_make_dense_kernel``, and the one the sharded path runs,
 ``winding_pallas.py::_winding_kernel`` (K4); ``winding_windows()`` replaces the
-window-packed one, ``winding_dense.py::_make_dense_win_kernel`` (K3). See the
-note in the source.
+window-packed one, ``winding_dense.py::_make_dense_win_kernel`` (K3), and
+``winding_banded()`` the row-banded strips, ``winding_pallas_banded_batch`` and
+``winding_dense_banded_batch`` (K5, K6). See the note in the source.
 
 A tensor on the CPU goes to the plain version, ``winding_ref``. A CUDA
 tensor goes to the kernel, and a failed build or launch raises.
@@ -23,15 +24,20 @@ SOURCE = "fontrx_torch/csrc/winding.cu"
 # launches of each kernel in this process; the wrappers add one per launch
 launches = 0
 windows_launches = 0
+banded_launches = 0
+
+
+def _check_layout(name, t, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
 def _check(name, t, dtype, shape):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    _check_layout(name, t, dtype, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -153,4 +159,63 @@ def launch_windows(segments_win, counts, min_x, max_y, scale, b, nw, cap, win_ro
     if err != 0:
         raise RuntimeError(f"winding_windows kernel launch failed: cudaError_t {err}")
     windows_launches += 1
+    return out
+
+
+def winding_banded_batch(
+    segments, owners, min_x, max_y, scale, *, width, sample_offset=(0.0, 0.0)
+):
+    """Row-banded strips, the function of K5 and K6: int32 ``[B, 128,
+    width]``, band ``k`` of element ``b`` on rows ``[k * 128/R, (k + 1) *
+    128/R)``, ``R = min_x.shape[0]``.
+
+    ``segments`` float32 ``[B, S, 3, 2]``, ``owners`` int32 ``[B, S]`` and
+    ``min_x``/``max_y`` int32 ``[R, B]`` on one device, ``R`` dividing 128.
+    Same arguments and result as ``winding_ref.winding_banded_batch``.
+    """
+    global banded_launches
+    if segments.dim() != 4 or segments.shape[2:] != (3, 2):
+        raise ValueError(f"segments must be [B, S, 3, 2], got {tuple(segments.shape)}")
+    b, s = segments.shape[:2]
+    if min_x.dim() != 2:
+        raise ValueError(f"min_x must be [R, B], got {tuple(min_x.shape)}")
+    r = min_x.shape[0]
+    if r < 1 or winding_ref.STRIP_ROWS % r:
+        raise ValueError(f"{r} bands do not divide a strip of {winding_ref.STRIP_ROWS} rows")
+    inputs = (("segments", segments, torch.float32, (b, s, 3, 2)),
+              ("owners", owners, torch.int32, (b, s)),
+              ("min_x", min_x, torch.int32, (r, b)),
+              ("max_y", max_y, torch.int32, (r, b)))
+    for spec in inputs:
+        _check_layout(*spec)
+    if width < 0:
+        raise ValueError(f"bad strip width {width}")
+    if segments.device.type == "cpu":
+        return winding_ref.winding_banded_batch(
+            segments, owners, min_x, max_y, scale, width=width, sample_offset=sample_offset,
+        )
+    for spec in inputs:
+        _check(*spec)
+    if any(t.device != segments.device for _, t, _, _ in inputs):
+        raise ValueError("segments, owners, min_x and max_y must be on one device")
+    scale = np.float32(scale)
+    if not (np.isfinite(scale) and scale > 0):
+        raise ValueError(f"scale must be finite and > 0, got {scale}")
+
+    ox, oy = (np.float32(v) for v in sample_offset)
+    out = torch.empty((b, winding_ref.STRIP_ROWS, width), dtype=torch.int32,
+                      device=segments.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("winding")
+    with torch.cuda.device(segments.device):
+        stream = torch.cuda.current_stream(segments.device).cuda_stream
+        err = lib.winding_banded(
+            segments.data_ptr(), owners.data_ptr(), min_x.data_ptr(), max_y.data_ptr(),
+            float(scale), float(ox), float(oy),
+            b, s, r, width, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"winding_banded kernel launch failed: cudaError_t {err}")
+    banded_launches += 1
     return out

@@ -183,3 +183,47 @@ def winding_windows_batch(
             chunk = segs[:, s0 : s0 + step, None, None]  # [B, C, 1, 1, 3, 2]
             out[:, r0:r1] += winding_contrib(chunk, cxb, cyb).sum(dim=1, dtype=torch.int32)
     return out
+
+
+# rows of a banded element's strip (K5/K6's STRIP_ROWS)
+STRIP_ROWS = 128
+
+
+def winding_banded_batch(
+    segments, owners, min_x, max_y, scale, *, width, sample_offset=(0.0, 0.0)
+):
+    """Row-banded strips: the function of K5 and K6,
+    ``winding_pallas_v2.py::winding_pallas_banded_batch`` and
+    ``winding_dense.py::winding_dense_banded_batch``.
+
+    - ``segments``: float32 ``[B, S, 3, 2]``, each element's bands' segments
+      in any order
+    - ``owners``: int32 ``[B, S]``, the band of each segment
+    - ``min_x``, ``max_y``: int32 ``[R, B]``, each band's anchors; ``R``
+      divides 128
+    - ``scale`` and ``sample_offset`` as in ``winding_batch``
+    -> int32 ``[B, 128, width]``.
+
+    Rows ``[k * 128/R, (k + 1) * 128/R)`` of element ``b`` are
+    ``winding_batch``'s map at ``(min_x[k, b], max_y[k, b])`` over the
+    segments whose owner is ``k``: every other segment's crossings are
+    masked to zero there, as the TPU kernels mask them (an owner outside
+    ``[0, R)`` adds nothing anywhere).
+    """
+    r, b = min_x.shape
+    band_h = STRIP_ROWS // r
+    s = segments.shape[1]
+    out = torch.zeros((b, STRIP_ROWS, width), dtype=torch.int32, device=segments.device)
+    step = seg_chunk(b, band_h, width)
+    for k in range(r):
+        cx, cy = sample_coords(min_x[k], max_y[k], scale, height=band_h, width=width,
+                               sample_offset=sample_offset)
+        cxb = cx[:, None, None, :]  # [B, 1, 1, W]
+        cyb = cy[:, None, :, None]  # [B, 1, H, 1]
+        mine = (owners == k)[:, :, None, None]  # [B, S, 1, 1]
+        rows = out[:, k * band_h : (k + 1) * band_h]
+        for s0 in range(0, s, step):
+            chunk = segments[:, s0 : s0 + step, None, None]  # [B, C, 1, 1, 3, 2]
+            contrib = winding_contrib(chunk, cxb, cyb)
+            rows += torch.where(mine[:, s0 : s0 + step], contrib, 0).sum(dim=1, dtype=torch.int32)
+    return out

@@ -57,6 +57,7 @@ MODULES = [
     "fontrx_torch.pack.segments",
     "fontrx_torch.pack.windows",
     "fontrx_torch.bench",
+    "fontrx_torch.bench.banded",
     "fontrx_torch.bench.cjk",
     "fontrx_torch.bench.roofline",
     "fontrx_torch.bench.timing",
