@@ -32,7 +32,9 @@ just after:
 - **SDF atlas** (BASELINE config 4): signed distance fields (8 px spread)
   of ascii256, cjk64 and cjk32 (the CJK batch on 32 x 32 grids) through
   ``RasterEngine.sdf_batch`` (the winding kernel for the sign, then the
-  distance kernel), then ``sdf_to_u8``;
+  distance kernel), then ``sdf_to_u8``; the (segment, pixel) pairs the kernel
+  runs its program on (``bound.sdf_kept_pairs`` at its cull box) are counted
+  beside the pairs the function needs;
 - **Loop-Blinn atlas** (BASELINE config 3): the 94 printable ASCII glyphs of
   DejaVu Sans triangulated by ``fontrx_torch.geometry``, padded to one
   triangle count, at 128 px on 128 x 128 tiles through
@@ -177,8 +179,8 @@ from fontrx_torch.bench import roofline as roofline_probe
 from fontrx_torch.bench.cjk import UPEM, make_batch
 from fontrx_torch.bench.timing import cuda_ms, graph_ms
 from fontrx_torch.bound import (
-    bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes, page_msaa_work,
-    page_work, sdf_work, winding_work, window_bytes, window_work)
+    SDF_CULL_BOX, bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes,
+    page_msaa_work, page_work, sdf_kept_pairs, sdf_work, winding_work, window_bytes, window_work)
 from fontrx_torch.cli import main as cli
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
@@ -964,6 +966,23 @@ def band_timings(font, f, size, dev):
         crossings=crossings)
 
 
+def full_frame_timings(font, log, size, dev):
+    """Per leg, its last full single-sample frame: the page kernel on it
+    (graph replays) and its bound."""
+    w, h = size
+    out = {}
+    for leg in dict.fromkeys(f["leg"] for f in log):
+        full = [f for f in log if f["leg"] == leg and f["path"] == "full" and not f["msaa"]]
+        if not full:
+            continue
+        inputs = PageRenderer(font, full[-1]["layout"], w, h, dev).page_inputs(full[-1]["view"])
+        ops, _, _ = page_work(*inputs, page_h=h, page_w=w)
+        b_ms, bound_by = bound_ms(page_bytes(len(inputs[0]), len(inputs[2]), h, w), ops)
+        out[leg] = dict(ms=graph_ms(lambda: page.direct_page(*inputs, page_h=h, page_w=w)),
+                        bound_ms=b_ms, bound_by=bound_by, full_frames=len(full))
+    return out
+
+
 def edit_phase(dev, font, zoom_pan_ms):
     """The edit path: config 5's session and the narrow one through their
     legs, and the probe's 10k-character page with the incremental layout on
@@ -1027,6 +1046,16 @@ def edit_phase(dev, font, zoom_pan_ms):
               f"render_direct(band=) {t['call_ms']:.4f} ms per call, splice {t['splice_ms']:.4f} "
               f"ms on the device ({t['splice_call_ms']:.4f} per call), bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']}), plain version {t['plain_ms']:.3f} ms")
+    full = {name: full_frame_timings(font, log, size, dev)
+            for name, log, size in (("config5", log5, CONFIG5_SIZE),
+                                    ("narrow", logn, EDIT_NARROW_SIZE),
+                                    *((f"probe10k_{key}", run[1], CONFIG5_SIZE)
+                                      for key, run in probe.items()))}
+    for name, per_leg in full.items():
+        for leg, t in per_leg.items():
+            print(f"{name} edit leg {leg}: {t['full_frames']} full frames; the last one's kernel "
+                  f"{t['ms']:.4f} ms on the device, bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']})")
     for key, (result, _, sess) in probe.items():
         print(f"probe10k {key}: {json.dumps(result)}; session stats {json.dumps(sess.stats())}")
     edit5 = [f["frame_ms"] for f in log5 if f["relayout_ms"] is not None]
@@ -1036,7 +1065,7 @@ def edit_phase(dev, font, zoom_pan_ms):
     record = dict(
         launches=launches["page"], band_launches=band_launches,
         band=bands["config5"], narrow_band=bands["narrow"],
-        first_view_band=bands["config5_first_view"],
+        first_view_band=bands["config5_first_view"], full_frames=full,
         config5_edit_frame_ms=statistics.median(edit5), config5_zoom_pan_ms=zoom_pan_ms,
         legs=summary, probe10k={key: run[0] for key, run in probe.items()})
     return record, launches["page"]
@@ -1111,32 +1140,70 @@ class CliStages:
             yield self
 
 
+def live_counts(segments) -> np.ndarray:
+    """Per glyph, its segments before the all-zero padding."""
+    seg = np.asarray(segments, np.float32)
+    return (seg.reshape(seg.shape[0], seg.shape[1], 6) != 0).any(axis=2).sum(axis=1)
+
+
 def cli_kernel_ms(render):
     """The device ms (CUDA-graph replays) of the kernels that a CLI call's
-    render call ``(function, arguments)`` launched, on the same inputs;
-    ``None`` for ``-d`` (host NumPy)."""
+    render call ``(function, arguments)`` launched, on the same inputs, and
+    their bound: ``{"ms", "bound_ms", "bound_by"}``, the bounds of two
+    launches added (the SDF's sign, then its distances); ``None`` for ``-d``
+    (host NumPy)."""
     fn, args, kwargs = render
+
+    def timed(kernel, *bounds):
+        b_ms = sum(b for b, _ in bounds)
+        by = "+".join(by for _, by in bounds)
+        return dict(ms=graph_ms(kernel), bound_ms=b_ms, bound_by=by)
+
     if fn.__name__ == "render_direct":
         renderer, view = args
         inputs = renderer.page_inputs(view)
-        return graph_ms(lambda: page.direct_page(*inputs, page_h=renderer.height,
-                                                 page_w=renderer.width))
-    if fn.__name__ in ("coverage_batch", "sdf_batch"):
-        engine, *batch = args
+        h, w = renderer.height, renderer.width
+        ops, _, _ = page_work(*inputs, page_h=h, page_w=w)
+        return timed(lambda: page.direct_page(*inputs, page_h=h, page_w=w),
+                     bound_ms(page_bytes(len(inputs[0]), len(inputs[2]), h, w, "fill"), ops))
+    if fn.__name__ in ("coverage_batch", "sdf_batch", "winding_glyph"):
+        if fn.__name__ == "winding_glyph":
+            engine, segments, grid = args
+            batch = (np.asarray(segments, np.float32)[None], [grid.min_x], [grid.max_y],
+                     grid.scale)
+            kwargs = dict(height=grid.height, width=grid.width)
+        else:
+            engine, *batch = args
         dev_args = to_device(*batch, engine.device)
-        kernel = coverage.coverage_batch if fn.__name__ == "coverage_batch" else sdf.sdf_batch
-        return graph_ms(lambda: kernel(*dev_args, **kwargs))
-    if fn.__name__ == "winding_glyph":
-        engine, segments, grid = args
-        dev_args = to_device(np.asarray(segments, np.float32)[None], [grid.min_x],
-                             [grid.max_y], grid.scale, engine.device)
-        return graph_ms(lambda: winding.winding_batch(*dev_args, height=grid.height,
-                                                      width=grid.width))
+        h, w = kwargs["height"], kwargs["width"]
+        counts = live_counts(batch[0])
+        if fn.__name__ == "coverage_batch":
+            k = kwargs["samples"]
+            ops, nbytes, _ = winding_work(
+                batch[0], counts, dev_args[2], dev_args[3], height=h, width=w,
+                row_offsets=coverage_ref.sample_offsets(k)[::k, 1], columns=k,
+                samples_per_pixel=k * k)
+            return timed(lambda: coverage.coverage_batch(*dev_args, **kwargs),
+                         bound_ms(nbytes, ops))
+        ops, nbytes, _ = winding_work(batch[0], counts, dev_args[2], dev_args[3], height=h,
+                                      width=w)
+        if fn.__name__ == "winding_glyph":
+            return timed(lambda: winding.winding_batch(*dev_args, height=h, width=w),
+                         bound_ms(nbytes, ops))
+        out = torch.empty((len(counts), h, w), dtype=torch.float32, device=dev_args[0].device)
+        spread = kwargs.get("spread_px", sdf_ref.SPREAD_PX)
+        sdf_ops, _ = sdf_work(*dev_args, height=h, width=w, spread_px=spread)
+        sdf_bytes = sum(t.numel() * t.element_size() for t in (*dev_args[:3], out))
+        return timed(lambda: sdf.sdf_batch(*dev_args, **kwargs), bound_ms(nbytes, ops),
+                     bound_ms(sdf_bytes + out.numel() * 4, sdf_ops))
     if fn.__name__ == "loopblinn_fill":
         mesh, grid = args
         dev_args = triangles_to_device(*loopblinn.pack_meshes([mesh]), [grid], kwargs["device"])
-        return graph_ms(lambda: loopblinn.loopblinn_batch(*dev_args, height=grid.height,
-                                                          width=grid.width))
+        ops, _ = loopblinn_work(*dev_args, height=grid.height, width=grid.width)
+        nbytes = loopblinn_bytes(dev_args[1], grid.height, grid.width)
+        return timed(lambda: loopblinn.loopblinn_batch(*dev_args, height=grid.height,
+                                                       width=grid.width),
+                     bound_ms(nbytes, ops))
     return None
 
 
@@ -1245,8 +1312,9 @@ def cli_phase(dev, tmp):
         print(f"CLI {name} ({' '.join(argv)}): {got.shape[1]} x {got.shape[0]}; first call "
               f"{run['first_ms']:.2f} ms, warm median {run['warm_ms']:.2f} ms = "
               + ", ".join(f"{k} {v:.3f}" for k, v in run["split"].items())
-              + (f" ms; kernel {run['kernel_ms']:.4f} ms on the device" if run["kernel_ms"]
-                 else " ms; no kernel")
+              + (f" ms; kernel {run['kernel_ms']['ms']:.4f} ms on the device, bound "
+                 f"{run['kernel_ms']['bound_ms']:.5f} ms ({run['kernel_ms']['bound_by']})"
+                 if run["kernel_ms"] else " ms; no kernel")
               + (f"; new process {run['cold_s']:.2f} s" if "cold_s" in run else "")
               + f"; QOI bytes equal to --backend cpu's ({cpu_ms:.1f} ms on the CPU); "
               f"a standard QOI decoder misreads {misread} values")
@@ -1254,6 +1322,21 @@ def cli_phase(dev, tmp):
     check_edit_log(Font.open(DEJAVU), "cli -i", log, CONFIG5_SIZE, dev)
     check([f["launches"] for f in log] == [(1, 0), (1, 0), (0, 1), (1, 0)],
           f"-i frames launched {[f['launches'] for f in log]}")
+    kernels = []  # each -i frame's page kernel on its inputs, beside its bound
+    w, h = CONFIG5_SIZE
+    for f in log:
+        inputs = PageRenderer(Font.open(DEJAVU), f["layout"], w, h, dev).page_inputs(f["view"])
+        if f["msaa"]:
+            ops, _, _ = page_msaa_work(*inputs, page_h=h, page_w=w)
+            b_ms, bound_by = bound_ms(page_msaa_bytes(len(inputs[0]), len(inputs[2]), h, w), ops)
+            ms = graph_ms(lambda inputs=inputs: page.direct_page_msaa(*inputs, page_h=h,
+                                                                      page_w=w))
+        else:
+            ops, _, _ = page_work(*inputs, page_h=h, page_w=w)
+            b_ms, bound_by = bound_ms(page_bytes(len(inputs[0]), len(inputs[2]), h, w), ops)
+            ms = graph_ms(lambda inputs=inputs: page.direct_page(*inputs, page_h=h, page_w=w))
+        kernels.append(dict(kernel="page_msaa" if f["msaa"] else "page", ms=ms, bound_ms=b_ms,
+                            bound_by=bound_by))
     misreads = []
     for n, f in enumerate(log):
         data = (tmp / f"frame_{n:04d}.qoi").read_bytes()
@@ -1264,9 +1347,11 @@ def cli_phase(dev, tmp):
     stats = ast.literal_eval(stats_line)
     check(stats["frames"] == len(log), f"-i stats: {stats_line}")
     record["interactive"] = dict(launches=i_launches, frame_ms=[f["frame_ms"] for f in log],
-                                 spec_decoder_misreads=misreads, stats=stats)
+                                 kernels=kernels, spec_decoder_misreads=misreads, stats=stats)
     print(f"CLI -i: {len(log)} frames of config 5 equal the plain version (MSAA after m), "
           f"launches {json.dumps(i_launches)}, frame ms {record['interactive']['frame_ms']}, "
+          f"kernels " + ", ".join(f"{k['kernel']} {k['ms']:.4f} ms (bound {k['bound_ms']:.5f})"
+                                  for k in kernels) + "; "
           f"values a standard QOI decoder misreads {misreads}; {stats_line}")
     return record, launches
 
@@ -1628,6 +1713,8 @@ def main() -> None:
 
         w = winding.winding_batch(*args, height=size, width=size)
         b_ms, bound_by, ops, pairs = sdf_bound(args, out)
+        # the pairs the kernel runs its program on: its cull at its own box
+        kept = sdf_kept_pairs(*args, height=size, width=size)
         kernel_ms = graph_ms(
             lambda: sdf.sdf_from_winding(*args, w, height=size, width=size))
         call_ms = cuda_ms(lambda: sdf.sdf_batch(*args, height=size, width=size), inner=10)
@@ -1636,9 +1723,11 @@ def main() -> None:
             inner=1, reps=3, warmup=1)
         record["sdf"][name] = dict(ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms,
                                    bound_ms=b_ms, bound_by=bound_by, bound_ops=ops,
-                                   needed_pairs=pairs)
+                                   needed_pairs=pairs, kept_pairs=kept,
+                                   kept_box=list(SDF_CULL_BOX))
         print(f"{name} sdf: kernel {kernel_ms:.4f} ms on the device "
-              f"({b / kernel_ms * 1e3:.0f} glyphs/s, {pairs} needed pairs), {call_ms:.4f} ms "
+              f"({b / kernel_ms * 1e3:.0f} glyphs/s, {pairs} needed pairs, {kept} kept at the "
+              f"{SDF_CULL_BOX[0]} x {SDF_CULL_BOX[1]} box, {kept / pairs:.3f}x), {call_ms:.4f} ms "
               f"per wrapper call (winding + distance); bound {b_ms:.4f} ms ({bound_by}; "
               f"{ops} FP32 ops); plain version {plain_ms:.3f} ms")
 
@@ -1948,6 +2037,22 @@ def main() -> None:
           "entry() output shape or values")
     check(torch.equal(mask, ref_mask.to(torch.float32)), "entry() differs from winding_ref")
     print(f"entry(): [8, 128, 640] mask equals winding_ref, inked {int(mask.sum())}")
+    # the fill path's other two launches, timed beside their bounds
+    qs_args = to_device(np.asarray(packed.segments, np.float32)[None], [grid.min_x],
+                        [grid.max_y], grid.scale, dev)
+    for name, args, (h, w) in (("quick_start", qs_args, (grid.height, grid.width)),
+                               ("entry", example_args, (128, 640))):
+        segs = args[0].cpu().numpy()
+        ops, nbytes, _ = winding_work(segs, live_counts(segs), args[2], args[3], height=h,
+                                      width=w)
+        b_ms, bound_by = bound_ms(nbytes, ops)
+        record["winding"][name] = dict(
+            ms=graph_ms(lambda args=args, h=h, w=w: winding.winding_batch(*args, height=h,
+                                                                          width=w)),
+            bound_ms=b_ms, bound_by=bound_by, bound_ops=ops)
+        print(f"{name} winding: {len(segs)} glyphs of {h}x{w}, kernel "
+              f"{record['winding'][name]['ms']:.4f} ms on the device, bound {b_ms:.5f} ms "
+              f"({bound_by})")
 
     # --- roofline probe (K13), once --------------------------------------------
     roofline_entry = roofline_phase(dev, record, atlases["ascii256"][:2])

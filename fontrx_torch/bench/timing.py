@@ -1,9 +1,11 @@
 """Device times on a CUDA card: CUDA events around calls, and around
-CUDA-graph replays where the host's launch overhead must not count."""
+CUDA-graph replays where the host's launch overhead must not count; and the
+card's name and power limit to stand beside them."""
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import torch
 
@@ -40,3 +42,13 @@ def graph_ms(fn, *, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, inner=1) / calls
+
+
+def card() -> str:
+    """``name, power limit`` as nvidia-smi reports them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi failed: {exc}"

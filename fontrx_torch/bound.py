@@ -354,6 +354,61 @@ def sdf_work(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
     return ops, pairs
 
 
+# The box of pixels csrc/sdf.cu culls for, (rows, columns): a warp's box,
+# (kBoxH, kBoxW) there, a pixel a lane
+SDF_CULL_BOX = (8, 4)
+# the kernel's guard beyond the spread, in pixels (K11's guard_px)
+SDF_GUARD_PX = 1.0
+
+
+def sdf_kept_pairs(segments, min_x, max_y, scale, *, height, width, spread_px=8.0,
+                   box=SDF_CULL_BOX):
+    """The (segment, pixel) pairs ``csrc/sdf.cu`` runs its program on: per
+    glyph, the raster cut into ``box = (rows, columns)`` boxes from its
+    corner, each box's live segments that its cull keeps, times the box's
+    pixels inside the raster. A segment is kept unless the float64 box
+    distance between its control hull and the box of the pixels' em-space
+    sample points exceeds ``(spread + 1 px) / scale``, the kernel's rule.
+
+    Tensors or arrays; the count runs on the tensors' device. The lanes of a
+    box that lies partly outside the raster run the program too, but write
+    nothing, and are not counted."""
+    seg = torch.as_tensor(segments)
+    dev = seg.device
+    f64 = torch.float64
+    min_x = torch.as_tensor(min_x, dtype=torch.int32, device=dev).to(f64)
+    max_y = torch.as_tensor(max_y, dtype=torch.int32, device=dev).to(f64)
+    sc = float(f32(scale))
+    margin = (float(f32(spread_px)) + SDF_GUARD_PX) / sc
+    dead = (seg == 0).flatten(-2).all(dim=-1)  # [B, S]
+    h0 = seg.amin(dim=2).to(f64)  # [B, S, 2]: x_min, y_min
+    h1 = seg.amax(dim=2).to(f64)
+    bh, bw = box
+    c0 = torch.arange(0, width, bw, device=dev)
+    r0 = torch.arange(0, height, bh, device=dev)
+    c1 = torch.clamp(c0 + bw, max=width) - 1
+    r1 = torch.clamp(r0 + bh, max=height) - 1
+    zero = torch.zeros((), dtype=f64, device=dev)
+
+    def axis(lo, hi, near, far):  # [B, S] hull, [B, n] box -> [B, S, n]
+        d = torch.maximum(lo[..., None] - far[:, None, :], near[:, None, :] - hi[..., None])
+        return torch.maximum(d, zero)
+
+    bx0 = (min_x[:, None] + c0.to(f64)) / sc  # [B, nx]
+    bx1 = (min_x[:, None] + c1.to(f64)) / sc
+    by1 = (max_y[:, None] - r0.to(f64)) / sc  # [B, ny]
+    by0 = (max_y[:, None] - r1.to(f64)) / sc
+    dx = axis(h0[..., 0], h1[..., 0], bx0, bx1)
+    dy = axis(h0[..., 1], h1[..., 1], by0, by1)
+    pixels = (r1 - r0 + 1)[:, None] * (c1 - c0 + 1)[None, :]  # [ny, nx]
+    total = 0
+    for b in range(seg.shape[0]):
+        d2 = dx[b, :, None, :] * dx[b, :, None, :] + dy[b, :, :, None] * dy[b, :, :, None]
+        keep = ~(d2 > margin * margin) & ~dead[b, :, None, None]
+        total += int((keep.sum(dim=0) * pixels).sum())
+    return total
+
+
 # Loop-Blinn, per triangle that can draw: area = (bx - ax)*(cy - ay) -
 # (by - ay)*(cx - ax) (7), its sign (1), area != 0 (1), 1/area (1)
 LB_TRIANGLE_SETUP = 10

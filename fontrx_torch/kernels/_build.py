@@ -98,9 +98,8 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int, ctypes.c_float,          # S, N, s_px
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # top, out_h, W, mode
              ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
-             ctypes.c_float, ctypes.c_float,                      # ox, oy
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
-             ctypes.c_void_p],                                    # stream
+             ctypes.c_float, ctypes.c_float, ctypes.c_int,        # ox, oy, stride
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],  # scratch, out, stream
         ),
         "page_msaa": (
             ctypes.c_int,

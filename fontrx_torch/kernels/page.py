@@ -27,6 +27,10 @@ launches = 0
 msaa_launches = 0
 
 _INT32_MAX = 2**31 - 1
+# page()'s scratch past its buckets (csrc/page.cu): the counters, and the
+# ints of a long segment's record
+_COUNTERS = 4
+_RECORD_INTS = 16
 
 
 def _check(name, t, dtype, shape):
@@ -103,15 +107,19 @@ def launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, out_h, wi
         return out
     lib = _build.load("page")
     chunk, tile_w, x_cull = page_ref.route(width)
-    hulls = torch.empty((-(-s // chunk), 4), dtype=torch.float32, device=dev)
-    bucket = torch.empty((out_h, width + 1), dtype=torch.int32, device=dev)
+    # scratch of this call: int32 bucket rows of ``stride`` cells (16-byte
+    # rows) and the counters after them, which the entry zeroes, and a
+    # record of 16 ints a segment (page.cu's kCounters and LongSegment)
+    stride = -(-width // 4) * 4
+    scratch = torch.empty(out_h * stride + _COUNTERS + _RECORD_INTS * s, dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.page(
             flat_segments.data_ptr(), seg_inst_idx.data_ptr(), inst_offsets.data_ptr(),
             s, n, float(s_px), top, out_h, width, MODES.index(mode), chunk, tile_w,
-            int(x_cull), float(ox), float(oy), hulls.data_ptr(), bucket.data_ptr(),
-            out.data_ptr(), stream,
+            int(x_cull), float(ox), float(oy), stride, scratch.data_ptr(), out.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"page kernel launch failed: cudaError_t {err}")

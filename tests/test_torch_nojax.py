@@ -59,6 +59,7 @@ MODULES = [
     "fontrx_torch.bench",
     "fontrx_torch.bench.banded",
     "fontrx_torch.bench.cjk",
+    "fontrx_torch.bench.page_split",
     "fontrx_torch.bench.roofline",
     "fontrx_torch.bench.timing",
     "fontrx_torch.io",

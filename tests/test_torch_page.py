@@ -474,6 +474,36 @@ class TestKernelOnCard:
                 assert torch.equal(got, winding_kernel_page(inputs, h, w))
                 assert torch.equal(band, winding_kernel_page(inputs, h, w, 40, 100))
 
+    @pytest.mark.parametrize("page_w", [1, 31, 33, 255, 257, 362, 1100])
+    def test_widths_rows_and_spans(self, cuda, page_w):
+        """Widths around the scan's words and steps and both routes, a
+        one-row band, a band inside the page, a segment that crosses one
+        row and one that crosses more than 32."""
+        q = np.concatenate([ulp_slivers(64), on_rows(64), [
+            [5.0, 9.6, 6.0, 10.0, 7.0, 10.4],     # crosses the row at y = 10 only
+            [3.0, 2.0, 20.0, 30.0, 8.0, 60.0],    # 58 rows
+            [0.5, 63.5, 400.0, 30.0, 0.5, 0.5],   # across the page
+        ]]).astype(f32)
+        inputs = tuple(t.to(cuda) if torch.is_tensor(t) else t for t in sliver_page(q))
+        for y0, out_h in ((0, 64), (0, 1), (40, 17), (63, 1)):
+            for mode in ("winding", "fill", "gray"):
+                got = page.direct_page(*inputs, y0, page_h=64, page_w=page_w, out_h=out_h,
+                                       mode=mode)
+                want = page_ref.direct_page(*inputs, y0, page_h=64, page_w=page_w,
+                                            out_h=out_h, mode=mode)
+                assert got.shape == (out_h, page_w) and torch.equal(got, want)
+
+    @pytest.mark.parametrize("page_w", [33, 1100])
+    def test_no_segments(self, cuda, page_w):
+        seg = torch.zeros((0, 3, 2), device=cuda)
+        idx = torch.zeros(0, dtype=torch.int32, device=cuda)
+        offs = torch.zeros((1, 2), device=cuda)
+        before = page.launches
+        got = page.direct_page(seg, idx, offs, 1.0, page_h=20, page_w=page_w, mode="winding")
+        torch.cuda.synchronize()
+        assert page.launches == before + 1
+        assert got.shape == (20, page_w) and not got.any()
+
     def test_render_direct_launches_once(self, font, cuda):
         pr = renderer(font, "k7", cuda)
         view = init_view(font, "k7")

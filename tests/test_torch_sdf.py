@@ -22,11 +22,13 @@ card's tests also run where there is no JAX:
 """
 
 import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from fontrx_torch import bound
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import _build, oracle, sdf, sdf_ref, winding, winding_ref
@@ -39,6 +41,10 @@ CJK = ROOT / "tests" / "data" / "cjktest.ttf"
 CJK_CHARS = [chr(0x4E00 + i) for i in (0, 87, 301, 777)]
 TOL = 1e-4
 f32 = np.float32
+# the boxes of pixels the cull is held conservative at: K11's 16 x 16 tile
+# (its host pack's lists) and the box a pixel slot of a warp culls for
+BOXES = [pytest.param((16, 16), id="tile16x16"),
+         pytest.param(bound.SDF_CULL_BOX, id="slot{}x{}".format(*bound.SDF_CULL_BOX))]
 
 
 @pytest.fixture(scope="module")
@@ -58,13 +64,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_batch(size, b=3):
+@pytest.fixture
+def one_torch_thread():
+    """Small images: torch on one thread, so parallel test workers do not
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def random_batch(size, b=3, n=96):
     """The JAX package's SDF test batch (``tests/test_kernels.py:738-746``):
-    96 random quadratics a glyph, the last 5 rows all zero, ``min_x = 3``."""
+    ``n`` (96) random quadratics a glyph, the last 5 rows all zero,
+    ``min_x = 3``."""
     rng = np.random.default_rng(1234)
-    p0 = rng.uniform(100, 1900, (b, 96, 2))
-    p1 = p0 + rng.uniform(-80, 80, (b, 96, 2))
-    p2 = p0 + rng.uniform(-80, 80, (b, 96, 2))
+    p0 = rng.uniform(100, 1900, (b, n, 2))
+    p1 = p0 + rng.uniform(-80, 80, (b, n, 2))
+    p2 = p0 + rng.uniform(-80, 80, (b, n, 2))
     seg = np.stack([p0, p1, p2], 2).astype(f32)
     seg[:, -5:] = 0.0
     return seg, np.full(b, 3, np.int32), np.full(b, size - 1, np.int32), f32(size / 2048)
@@ -240,22 +257,25 @@ def hand_batch():
     return segs, np.zeros(4, np.int32), np.full(4, 15, np.int32), f32(1.0)
 
 
-def sdf_keep(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
-    """The kernel's tile cull (``csrc/sdf.cu``) in NumPy float64, per glyph:
-    bool ``[T, S]`` over the ``ceil(H/16) * ceil(W/16)`` tiles (row-major)
-    and the segments. A segment is kept for a tile unless it is all zero or
-    the box distance between its control hull and the tile's pixel box
-    exceeds ``spread + 1 px`` (K11's rule, ``sdf_pallas.py:408-426``)."""
+def sdf_keep(segments, min_x, max_y, scale, *, height, width, spread_px=8.0, box=(16, 16)):
+    """The kernel's cull (``csrc/sdf.cu``) in NumPy float64, per glyph: bool
+    ``[T, S]`` over the boxes of ``box = (rows, columns)`` pixels that cut
+    the raster from its corner (row-major, clipped to it) and the segments.
+    A segment is kept for a box unless it is all zero or the box distance
+    between its control hull and the box's pixels exceeds ``spread + 1 px``
+    (K11's rule, ``sdf_pallas.py:408-426``). At 16 x 16 it is K11's host
+    pack; at ``bound.SDF_CULL_BOX`` the kernel's, per pixel slot of a warp."""
     seg = np.asarray(segments, f32)
     scale = float(f32(scale))
     margin = (float(f32(spread_px)) + 1.0) / scale
-    c0, r0 = np.arange(0, width, 16), np.arange(0, height, 16)
-    c1, r1 = np.minimum(c0 + 16, width) - 1, np.minimum(r0 + 16, height) - 1
+    bh, bw = box
+    c0, r0 = np.arange(0, width, bw), np.arange(0, height, bh)
+    c1, r1 = np.minimum(c0 + bw, width) - 1, np.minimum(r0 + bh, height) - 1
     for b in range(seg.shape[0]):
         q = seg[b].astype(np.float64)
         dead = (seg[b] == 0).all(axis=(1, 2))
         mx, my = float(min_x[b]), float(max_y[b])
-        # the tiles' boxes, [T, 1] each
+        # the boxes, [T, 1] each
         bx0, bx1 = (np.tile((mx + v) / scale, len(r0))[:, None] for v in (c0, c1))
         by1, by0 = (np.repeat((my - v) / scale, len(c0))[:, None] for v in (r0, r1))
         dx = np.maximum(np.maximum(q[:, :, 0].min(1) - bx1, bx0 - q[:, :, 0].max(1)), 0.0)
@@ -263,21 +283,107 @@ def sdf_keep(segments, min_x, max_y, scale, *, height, width, spread_px=8.0):
         yield ~(dx * dx + dy * dy > margin * margin) & ~dead[None]
 
 
+def folded_pair_dist_sq(seg, px, py):
+    """``sdf_ref._pair_dist_sq`` in the association ``csrc/sdf.cu`` runs it:
+    what depends on the segment alone or on it and a constant ``t`` (0 * ax,
+    0 * bx2, 0 * ay, 0 * by2; 2 ax, 2 ay; per start value t0, (k3 t0 + k2) t0
+    and (3 k3 t0 + 2 k2) t0) computed once per segment, then the pair's
+    program from them. Same arguments and shapes."""
+    p0x, p0y = seg[..., 0, 0], seg[..., 0, 1]
+    p1x, p1y = seg[..., 1, 0], seg[..., 1, 1]
+    p2x, p2y = seg[..., 2, 0], seg[..., 2, 1]
+    dev = seg.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    two = 2 * one
+    ax = p1x - p0x
+    ay = p1y - p0y
+    bx2 = p0x - 2 * p1x + p2x
+    by2 = p0y - 2 * p1y + p2y
+    k3 = bx2 * bx2 + by2 * by2
+    k2 = 3 * (ax * bx2 + ay * by2)
+    k1 = 2 * (ax * ax + ay * ay)
+    k3x3 = 3 * k3
+    k2x2 = 2 * k2
+    # the segment's folded terms
+    zax, zbx, zay, zby = zero * ax, zero * bx2, zero * ay, zero * by2
+    ax2, ay2 = two * ax, two * ay
+    starts = [torch.tensor(t0, device=dev) for t0 in sdf_ref.START_VALUES]
+    cs = [(k3 * t0 + k2) * t0 for t0 in starts]
+    ds = [(k3x3 * t0 + k2x2) * t0 for t0 in starts]
+
+    qx = p0x - px
+    qy = p0y - py
+    qa = qx * ax + qy * ay
+    qb = qx * bx2 + qy * by2
+    k1b = k1 + qb
+    best = (qx + zax + zbx) * (qx + zax + zbx) + (qy + zay + zby) * (qy + zay + zby)
+    best = torch.minimum(best, (qx + ax2 + bx2) * (qx + ax2 + bx2)
+                         + (qy + ay2 + by2) * (qy + ay2 + by2))
+    for t0, c, d in zip(starts, cs, ds):
+        f = (c + k1b) * t0 + qa
+        df = d + k1b
+        df = torch.where(df == 0, one, df)
+        t = torch.clamp(t0 - f / df, 0.0, 1.0)
+        for _ in range(sdf_ref.NEWTON_ITERS - 1):
+            f = ((k3 * t + k2) * t + k1b) * t + qa
+            df = (k3x3 * t + k2x2) * t + k1b
+            df = torch.where(df == 0, one, df)
+            t = torch.clamp(t - f / df, 0.0, 1.0)
+        t2 = 2 * t
+        tt = t * t
+        dx = qx + t2 * ax + tt * bx2
+        dy = qy + t2 * ay + tt * by2
+        best = torch.minimum(best, dx * dx + dy * dy)
+    dead = (seg == 0).flatten(-2).all(dim=-1)
+    return torch.where(dead, torch.inf, best)
+
+
+def fold_segments():
+    """Segments float32 ``[n, 3, 2]`` for the fold test: random ones from a
+    seed, and adversarial ones: -0, subnormals, coordinates near 2^60 and
+    2^-60, a flat and a degenerate (straight) quadratic, all-zero padding,
+    and infinities and NaN, which the wrapper accepts."""
+    rng = np.random.default_rng(2024)
+    random = rng.uniform(-64, 64, (40, 3, 2)).astype(f32)
+    tiny = f32(1.4e-45)
+    adversarial = np.array([
+        [[-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0]],
+        [[-0.0, 3.0], [1.0, -0.0], [0.0, -2.0]],
+        [[tiny, -tiny], [2 * tiny, tiny], [-tiny, 3 * tiny]],
+        [[1e-39, 2e-39], [-3e-39, 1e-39], [5e-39, -7e-39]],
+        [[2.0**60, 1.0], [2.0**60 + 2.0**37, -3.0], [-(2.0**60), 5.0]],
+        [[2.0**-60, 2.0**-61], [3 * 2.0**-60, -(2.0**-59)], [2.0**-58, 2.0**-60]],
+        [[1.0, 5.0], [4.0, 5.0], [9.0, 5.0]],           # flat in y
+        [[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]],           # a straight quadratic
+        [[2.0, -1.0], [2.0, -1.0], [2.0, -1.0]],        # a point
+        [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]],           # padding
+        [[np.inf, 0.0], [1.0, 1.0], [2.0, 0.0]],
+        [[0.0, 0.0], [-np.inf, 1.0], [2.0, np.inf]],
+        [[np.nan, 1.0], [1.0, 2.0], [3.0, 1.0]],
+        [[0.0, 1.0], [1.0, np.nan], [3.0, 1.0]],
+    ], f32)
+    return np.concatenate([random, adversarial])
+
+
 class TestCull:
-    """The kernel's tile cull (``sdf_keep``, the rule ``csrc/sdf.cu``
-    applies) drops only segments that cannot change a pixel: the plain
-    version over each tile's kept segments alone equals the plain version
-    over all of them, bit for bit."""
+    """The cull (``sdf_keep``: the rule ``csrc/sdf.cu`` applies per pixel
+    slot of a warp, ``bound.SDF_CULL_BOX``, and K11's host pack per 16 x 16
+    tile) drops only segments that cannot change a pixel: the plain version
+    over each box's kept segments alone equals the plain version over all of
+    them, bit for bit."""
 
     @staticmethod
-    def assert_conservative(batch, h, w):
+    def assert_conservative(batch, h, w, box):
         segs, min_x, max_y, scale = batch
+        bh, bw = box
         full = port_sdf(batch, h, w)
-        for b, keep in enumerate(sdf_keep(segs, min_x, max_y, scale, height=h, width=w)):
-            tiles_x = -(-w // 16)
+        boxes_x = -(-w // bw)
+        for b, keep in enumerate(sdf_keep(segs, min_x, max_y, scale, height=h, width=w,
+                                          box=box)):
             for t in range(keep.shape[0]):
-                r0, c0 = (t // tiles_x) * 16, (t % tiles_x) * 16
-                th, tw = min(16, h - r0), min(16, w - c0)
+                r0, c0 = (t // boxes_x) * bh, (t % boxes_x) * bw
+                th, tw = min(bh, h - r0), min(bw, w - c0)
                 kept = np.where(keep[t][:, None, None], segs[b], f32(0))[None]
                 anchors = (np.array([min_x[b] + c0], np.int32),
                            np.array([max_y[b] - r0], np.int32))
@@ -288,24 +394,51 @@ class TestCull:
                     dist.numpy()[0].view(np.int32),
                     np.abs(full[b, r0:r0 + th, c0:c0 + tw]).view(np.int32))
 
-    def test_random_batch(self):
+    @pytest.mark.parametrize("box", BOXES)
+    def test_random_batch(self, box, one_torch_thread):
         batch = random_batch(64)
-        self.assert_conservative(batch, 64, 64)
-        keep = np.concatenate(list(sdf_keep(*batch, height=64, width=64)))
+        self.assert_conservative(batch, 64, 64, box)
+        keep = np.concatenate(list(sdf_keep(*batch, height=64, width=64, box=box)))
         assert 0 < keep.mean() < 1  # it does cull
 
-    def test_glyphs_with_edge_tiles(self, dejavu):
-        self.assert_conservative(glyph_batch(dejavu, "W@", 40, 40), 36, 52)
+    @pytest.mark.parametrize("box", BOXES)
+    def test_glyphs_with_edge_tiles(self, dejavu, box, one_torch_thread):
+        self.assert_conservative(glyph_batch(dejavu, "W@", 40, 40), 36, 52, box)
 
-    def test_segment_at_the_band_edge(self):
+    @pytest.mark.parametrize("box", BOXES)
+    def test_segment_at_the_band_edge(self, box, one_torch_thread):
         batch = hand_batch()
-        keep = [k[0] for k in sdf_keep(*batch, height=16, width=16)]
+        t = 15 // box[1]  # the box of the first rows that holds column 15
+        keep = [k[t] for k in sdf_keep(*batch, height=16, width=16, box=box)]
         assert keep[0][0] and keep[1][0] and not keep[2][0]  # spread + 1 px is kept
         assert keep[3].tolist() == [True, True, False]  # dead rows are not
-        self.assert_conservative(batch, 16, 16)
+        self.assert_conservative(batch, 16, 16, box)
         out = np.abs(port_sdf(batch, 16, 16))
         assert (out[0, :, 15] == 8).all() and (out[0, :, :15] == 8).all()
         assert (out[1:3] == 8).all() and (out[3] < 8).any()
+
+    @pytest.mark.parametrize("box", BOXES)
+    @pytest.mark.parametrize("h,w", [(64, 64), (36, 52)])
+    def test_kept_pairs_count(self, dejavu, box, h, w, one_torch_thread):
+        """``bound.sdf_kept_pairs`` counts each box's kept segments times
+        its pixels in the raster."""
+        for batch in (random_batch(max(h, w)), glyph_batch(dejavu, "W@g", min(h, w), max(h, w))):
+            segs, min_x, max_y, scale = batch
+            bh, bw = box
+            rows = np.minimum(np.arange(0, h, bh) + bh, h) - np.arange(0, h, bh)
+            cols = np.minimum(np.arange(0, w, bw) + bw, w) - np.arange(0, w, bw)
+            pixels = (rows[:, None] * cols[None, :]).reshape(-1)
+            want = sum(int((keep.sum(axis=1) * pixels).sum())
+                       for keep in sdf_keep(*batch, height=h, width=w, box=box))
+            assert bound.sdf_kept_pairs(*batch, height=h, width=w, box=box) == want > 0
+
+    def test_cull_box_is_the_kernels(self):
+        """``bound.SDF_CULL_BOX`` is ``csrc/sdf.cu``'s warp box, ``(kBoxH,
+        kBoxW)`` with ``kBoxH = 32 / kBoxW``: a pixel a lane."""
+        src = (ROOT / "fontrx_torch" / "csrc" / "sdf.cu").read_text()
+        box_w = int(re.search(r"constexpr int kBoxW = (\d+);", src).group(1))
+        assert re.search(r"constexpr int kBoxH = 32 / kBoxW;", src)
+        assert bound.SDF_CULL_BOX == (32 // box_w, box_w)
 
     @pytest.mark.parametrize("size", [32, 64])
     def test_sdf_keep_matches_pack_sdf_tiles(self, size):
@@ -325,6 +458,30 @@ class TestCull:
         listed = np.take_along_axis(listed, np.argsort(tile_ids, axis=1), axis=1)
         keep = np.stack(list(sdf_keep(seg, min_x, max_y, scale, height=size, width=size)))
         np.testing.assert_array_equal(keep.sum(axis=2), listed)
+
+
+class TestFold:
+    """``csrc/sdf.cu``'s folded association, mirrored in torch, against the
+    plain version's per-pair program: bit for bit as int32 patterns, on
+    random and adversarial segments and sample points."""
+
+    @pytest.mark.parametrize("points", ["grid", "adversarial"])
+    def test_folded_terms_are_bit_equal(self, points, one_torch_thread):
+        seg = torch.from_numpy(fold_segments())[None, :, None, None]  # [1, C, 1, 1, 3, 2]
+        if points == "grid":
+            px = torch.from_numpy(np.linspace(-70, 70, 23).astype(f32))
+            py = torch.from_numpy(np.linspace(-70, 70, 19).astype(f32))
+        else:
+            vals = np.array([0.0, -0.0, 1.4e-45, -1e-39, 2.0**60, -(2.0**-60), 1.0, 2.0,
+                             5.0, 9.0], f32)
+            px, py = torch.from_numpy(vals), torch.from_numpy(vals[::-1].copy())
+        px = px[None, None, None, :]
+        py = py[None, None, :, None]
+        want = sdf_ref._pair_dist_sq(seg, px, py)
+        got = folded_pair_dist_sq(seg, px, py)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+        assert torch.isnan(want).any() and torch.isinf(want).any()  # the cases reach both
 
 
 class TestWrapper:
@@ -373,6 +530,26 @@ class TestKernelOnCard:
             assert out.dtype == torch.float32 and tuple(out.shape) == (b, h, w)
             assert torch.equal(out.view(torch.int32), want.view(torch.int32))
             assert torch.equal(sdf.sdf_to_u8(out), sdf_ref.sdf_to_u8(want))
+
+    @pytest.mark.parametrize("h,w", [(1, 1), (5, 3), (8, 4), (17, 33), (31, 47), (40, 9)])
+    def test_partial_boxes_and_a_glyph_without_segments(self, cuda, h, w):
+        """Rasters that are not whole tiles, warp boxes or pixel slots, and a
+        glyph whose segments are all padding."""
+        segs, min_x, max_y, scale = random_batch(max(h, w), b=4)
+        segs[2] = 0.0
+        args = tensors(segs, min_x, max_y, scale, cuda)
+        out = sdf.sdf_batch(*args, height=h, width=w)
+        want = sdf_ref.sdf_batch(*args, height=h, width=w)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        assert (out[2] == -8).all()
+
+    @pytest.mark.parametrize("n", [1, 6, 127, 128, 129, 300])
+    def test_segment_counts_across_chunks(self, cuda, n):
+        """Segment counts below, at and past the kernel's chunk of segments."""
+        args = tensors(*random_batch(48, n=n), cuda)
+        out = sdf.sdf_batch(*args, height=48, width=48)
+        want = sdf_ref.sdf_batch(*args, height=48, width=48)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
     @pytest.mark.parametrize("spread", [0.0, 1.0, 2.5, 12.0, 40.0])
     def test_spread_options(self, cuda, spread):
