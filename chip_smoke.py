@@ -632,6 +632,32 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
               + ", ".join(f"{f['ms']:.4f} / {f['call_ms']:.4f} / {f['plain_ms']:.2f} ms, "
                           f"{f['bound_ms']:.5f} ms ({f['bound_by']})" for f in rec))
 
+    # the coverage kernel on each shard of cjk64's glyph mesh, as
+    # coverage_sharded cuts them, held to the plain version and timed beside
+    # each shard's bound
+    rec = []
+    offsets = coverage_ref.sample_offsets(SAMPLES)[::SAMPLES, 1]
+    quarter = len(cjk.segments) // SHARDS
+    for k, (seg, mx, my) in enumerate(zip(*sharding.shard_batch(mesh, *cjk_args[:3]))):
+        part = slice(k * quarter, (k + 1) * quarter)
+        ops, nbytes, _ = winding_work(cjk.segments[part], cjk.seg_counts[part], my, scale,
+                                      height=64, width=64, row_offsets=offsets,
+                                      columns=SAMPLES, samples_per_pixel=SAMPLES * SAMPLES)
+        b_ms, bound_by = bound_ms(nbytes, ops)
+
+        def kernel(shard=(seg, mx, my, scale)):
+            return coverage.coverage_batch(*shard, height=64, width=64, samples=SAMPLES)
+
+        check(torch.equal(kernel(), coverage_ref.coverage_batch(
+            seg, mx, my, scale, height=64, width=64, samples=SAMPLES)),
+              f"cjk64 coverage shard {k} differs from the plain version")
+        rec.append(dict(ms=graph_ms(kernel), bound_ms=b_ms, bound_by=bound_by, bound_ops=ops))
+    record["cjk64_coverage_glyphs4"].update(
+        {f"shard_{key}": [f[key] for f in rec] for key in rec[0]})
+    print("sharded cjk64_coverage_glyphs4: coverage kernel per shard, equal to the plain "
+          "version; graph replay, bound: " + ", ".join(
+              f"{f['ms']:.4f} ms, {f['bound_ms']:.5f} ms ({f['bound_by']})" for f in rec))
+
     reset_counts()
     t0 = time.perf_counter()
     dryrun_multichip(DRYRUN_SHARDS)
@@ -2001,7 +2027,8 @@ def main() -> None:
                    needed_pairs=mean("needed_pairs"), crossings=mean("crossings"),
                    max_ms=max(f["ms"] for f in per_frame), first_ms=first["ms"],
                    first_bound_ms=first["bound_ms"], four_page_passes_first_ms=four_ms,
-                   plain_all_frames_s=ref_s)
+                   plain_all_frames_s=ref_s, frames_ms=[f["ms"] for f in per_frame],
+                   frames_bound_ms=[f["bound_ms"] for f in per_frame])
         if stats is not None:  # the user's frame: the session's, the page to the host included
             rec.update(session_frame_ms=stats["mean_ms"], session_p99_ms=stats["p99_ms"],
                        session_compute_ms=stats["compute_ms"])

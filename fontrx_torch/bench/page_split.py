@@ -1,4 +1,5 @@
-"""One ``page()`` frame's device time, split by device operation.
+"""A page frame's device time, split by device operation: ``page()`` (K7)
+and ``page_msaa()`` (K8).
 
 On a machine with a CUDA card and the CUDA toolkit:
 
@@ -13,7 +14,14 @@ that the session asks for:
 - the 256-row band of that frame at rows [400, 656), as the edit path
   renders a band;
 - the 4K stress page's first frame (``benchmarks/stress.py:93-124``): the
-  10k-character text on 3840 x 2160, zoomed out by 8 steps.
+  10k-character text on 3840 x 2160, zoomed out by 8 steps;
+
+and ``page.direct_page_msaa`` (K8's kernel) on three MSAA frames, as the
+session renders them with ``m`` pressed:
+
+- config 5's first view;
+- the narrow page's first view: six lines on 640 x 480, below the wide route;
+- the 4K stress page's first frame.
 
 For each it prints every device operation the frame runs (the bucket
 memset and each kernel) with its mean time a frame, their sum, and beside
@@ -46,20 +54,30 @@ BAND = (400, 256)
 STRESS_LINE = "The quick brown fox jumps over the lazy dog. 0123456789 "
 STRESS_TEXT = "\n".join(STRESS_LINE for _ in range(10000 // len(STRESS_LINE)))
 STRESS_SIZE = (3840, 2160)
+NARROW_TEXT = "\n".join(
+    "The quick brown fox jumps over the lazy dog 0123456789" for _ in range(6))
+NARROW_SIZE = (640, 480)
 
 
 def frames(dev):
-    """``(name, inputs, page_h, page_w, band_y0, out_h)`` of the three frames."""
+    """``(name, msaa, inputs, page_h, page_w, band_y0, out_h)`` of the six
+    frames."""
     font = Font.open(DEJAVU)
     sess = InteractiveSession(font, CONFIG5_TEXT, *CONFIG5_SIZE, dev)
     inputs5 = sess.renderer.page_inputs(sess.view)
+    narrow = InteractiveSession(font, NARROW_TEXT, *NARROW_SIZE, dev)
     w5, h5 = CONFIG5_SIZE
+    wn, hn = NARROW_SIZE
     w4, h4 = STRESS_SIZE
     view4 = ViewTransform.init(font.info.units_per_em, w4, h4).zoomed(-8.0, (0.0, 0.0))
     renderer4 = PageRenderer(font, layout_text(font, STRESS_TEXT), w4, h4, dev)
-    return [("config5", inputs5, h5, w5, 0, h5),
-            ("config5_band", inputs5, h5, w5, BAND[0], BAND[1]),
-            ("page4k", renderer4.page_inputs(view4), h4, w4, 0, h4)]
+    inputs4 = renderer4.page_inputs(view4)
+    return [("config5", False, inputs5, h5, w5, 0, h5),
+            ("config5_band", False, inputs5, h5, w5, BAND[0], BAND[1]),
+            ("page4k", False, inputs4, h4, w4, 0, h4),
+            ("config5_msaa", True, inputs5, h5, w5, 0, h5),
+            ("narrow_msaa", True, narrow.renderer.page_inputs(narrow.view), hn, wn, 0, hn),
+            ("page4k_msaa", True, inputs4, h4, w4, 0, h4)]
 
 
 def split(fn) -> dict:
@@ -87,17 +105,20 @@ def main() -> None:
     print("card:", card())
     _build.load("page")
     record = {}
-    for name, inputs, h, w, y0, rows in frames(dev):
-        def fn(inputs=inputs, h=h, w=w, y0=y0, rows=rows):
+    for name, msaa, inputs, h, w, y0, rows in frames(dev):
+        def fn(inputs=inputs, h=h, w=w, y0=y0, rows=rows, msaa=msaa):
+            if msaa:
+                return page.direct_page_msaa(*inputs, page_h=h, page_w=w)
             return page.direct_page(*inputs, y0, page_h=h, page_w=w, out_h=rows)
 
         ops = split(fn)
-        rec = dict(ops=ops, sum_ms=sum(o["ms"] for o in ops.values()),
+        rec = dict(kernel="page_msaa" if msaa else "page", ops=ops,
+                   sum_ms=sum(o["ms"] for o in ops.values()),
                    events_ms=cuda_ms(fn, inner=CALLS), graph_ms=graph_ms(fn),
                    segments=len(inputs[0]), rows=rows, width=w)
         record[name] = rec
-        print(f"{name} ({rows} x {w}, {rec['segments']} segments): profiler sum "
-              f"{rec['sum_ms']:.4f} ms a frame, CUDA events {rec['events_ms']:.4f} ms, "
+        print(f"{name} ({rec['kernel']}, {rows} x {w}, {rec['segments']} segments): profiler "
+              f"sum {rec['sum_ms']:.4f} ms a frame, CUDA events {rec['events_ms']:.4f} ms, "
               f"graph replays {rec['graph_ms']:.4f} ms")
         for key, o in sorted(ops.items(), key=lambda kv: -kv[1]["ms"]):
             print(f"  {o['ms']:.4f} ms  x{o['count']:g}  {key[:110]}")

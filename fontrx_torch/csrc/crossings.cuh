@@ -1,6 +1,7 @@
-// What the winding and coverage kernels share: the per-(segment, row) root
-// solve, the deposit of a crossing into a row of buckets, and the suffix
-// scan that turns a bucket row into per-column windings.
+// What the winding, coverage and page kernels share: the per-(segment, row)
+// root solve, the deposit of a crossing into a row of buckets, the suffix
+// scan that turns a bucket row into per-column windings, and the margin
+// around a segment's y-hull outside which the root solve finds no crossing.
 //
 // The root solve is the float program of fontrx/kernels/winding_pallas_v2.py::
 // phase_a_roots (lines 89-124), op for op, with left-to-right association
@@ -8,6 +9,8 @@
 // multiply-add is contracted and '/' and sqrtf round correctly: the
 // crossings are those of oracle.winding_at(contract=False).
 #pragma once
+
+#include <math.h>
 
 // Calls emit(xx, sign) for each crossing, t in [0, 1), of the horizontal
 // line at em-space height y_em with the quadratic segment
@@ -93,4 +96,46 @@ __device__ __forceinline__ void suffix_scan_row(const int* bucket_row, int W, in
     if (c < W) emit(c, s + carry);
     carry += __shfl_sync(0xffffffffu, s, 0);
   }
+}
+
+// The margin drops only pairs without a root: a sample row y outside
+// [y_min - m, y_max + m] of a segment's control hull gets no root in [0, 1)
+// from segment_crossings. Let u = 2^-24, M >= 1 bound |p0y|, |p1y|, |p2y|
+// and |y| over the rows the caller tests, a' the program's rounded a.
+// Nothing below depends on y being an integer or on the unit: it holds for
+// any float32 sample y, in page pixels (page.cu) as in em units
+// (coverage.cu).
+//   - Line, a' == 0: t = fl(fl(y - p0y) / fl(p2y - p0y)). Rounding is
+//     monotone, so for y above max(p0y, p2y) either p2y > p0y and
+//     fl(y - p0y) >= fl(p2y - p0y) > 0, t >= 1, or p2y < p0y and t < 0,
+//     unless the quotient underflows to -0, which needs y - p0y below
+//     2^-149 * 2M < 2^-19; the same below. So a line crosses no row more
+//     than 2^-19 off its hull; the margin is 1.
+//   - Quadratic, a' != 0. With a = p0y - 2 p1y + p2y exact, the program's
+//     operations give |a' - a| <= 7.01 M u, its discriminant is
+//     delta = (p0y - p1y)^2 + a (y - p0y) to within 24.1 M^2 u, its square
+//     root squared to within 12.2 M^2 u more, and fl(p0y - p1y) is within
+//     2 M u. A root t = fl(n / a') in [0, 1) needs n / a' in [-2^-150, 1),
+//     so tau = (q +- sq) / a' in [-2^-149, 1 + 2u]. Squaring
+//     q +- sq = a' tau and subtracting the curve's own identity
+//     a (y(tau) - p0y) = a^2 tau^2 - 2 a tau (p0y - p1y) leaves
+//     |a| |y - y(tau)| <= 145.3 M^2 u, and y(tau) lies within 32 M u of the
+//     hull. So the row lies within 145.3 M^2 u / (|a'| - 7.01 M u) + 32 M u
+//     of the hull. The margin rounds the constants up:
+//     max(1, 160 M^2 u / (|a'| - 8 M u) + 32 M u), and every row where
+//     |a'| <= 8 M u: a nearly straight quadratic, whose roots stray.
+// It is computed in double, with the operations and order of
+// kernels/page_ref.py::margin, which the CPU tests prove conservative on
+// slivers, near-lines and on-row segments: in page pixels at oy = 0 and
+// +-0.25 (tests/test_torch_page.py, test_torch_page_msaa.py), in em units
+// at the k x k lattice's sub-rows (tests/test_torch_coverage.py).
+// a is the program's rounded p0y - 2 p1y + p2y; ymax bounds |y|.
+__device__ double segment_margin(float p0y, float p1y, float p2y, float a, double ymax) {
+  constexpr double kU = 0x1p-24;
+  if (a == 0.0f) return 1.0;
+  double m = fmax(fmax(fabs((double)p0y), fabs((double)p1y)), fabs((double)p2y));
+  m = fmax(fmax(m, ymax), 1.0);
+  const double den = fabs((double)a) - 8.0 * m * kU;
+  if (!(den > 0.0)) return INFINITY;
+  return fmax(160.0 * m * m * kU / den + 32.0 * m * kU, 1.0);
 }

@@ -66,6 +66,10 @@ _SIGNATURES = {
          ctypes.c_float, ctypes.c_float, ctypes.c_int,        # scale, inv_k2, k
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+    ), "coverage_plan": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int,            # k, H, W
+         ctypes.c_void_p],                                    # plan: int32 [6]
     )},
     "sdf": {"sdf": (
         ctypes.c_int,
@@ -108,9 +112,8 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int,                          # H, W
              ctypes.c_int, ctypes.c_int, ctypes.c_int,            # chunk, tile_w, x_cull
              ctypes.c_float, ctypes.c_float,                      # ox0, ox1
-             ctypes.c_float, ctypes.c_float,                      # oy0, oy1
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # hulls, bucket, out
-             ctypes.c_void_p],                                    # stream
+             ctypes.c_float, ctypes.c_float, ctypes.c_int,        # oy0, oy1, stride
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],  # scratch, out, stream
         ),
     },
 }

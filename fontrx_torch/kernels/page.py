@@ -27,10 +27,20 @@ launches = 0
 msaa_launches = 0
 
 _INT32_MAX = 2**31 - 1
-# page()'s scratch past its buckets (csrc/page.cu): the counters, and the
-# ints of a long segment's record
+# both entries' scratch past their buckets (csrc/page.cu): the counters, and
+# the ints of a long segment's record
 _COUNTERS = 4
 _RECORD_INTS = 16
+
+
+def _scratch(out_h, width, s, planes, row_offsets, dev):
+    """``(stride, scratch)`` of one frame (``csrc/page.cu``): each row's
+    ``planes`` int32 bucket planes of ``stride`` cells (16-byte rows), the
+    counters, which the entry zeroes, and a record of 16 ints a segment and
+    row offset (``kCounters``, ``LongSegment``)."""
+    stride = -(-width // 4) * 4
+    n = out_h * planes * stride + _COUNTERS + _RECORD_INTS * row_offsets * s
+    return stride, torch.empty(n, dtype=torch.int32, device=dev)
 
 
 def _check(name, t, dtype, shape):
@@ -107,12 +117,7 @@ def launch(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, top, out_h, wi
         return out
     lib = _build.load("page")
     chunk, tile_w, x_cull = page_ref.route(width)
-    # scratch of this call: int32 bucket rows of ``stride`` cells (16-byte
-    # rows) and the counters after them, which the entry zeroes, and a
-    # record of 16 ints a segment (page.cu's kCounters and LongSegment)
-    stride = -(-width // 4) * 4
-    scratch = torch.empty(out_h * stride + _COUNTERS + _RECORD_INTS * s, dtype=torch.int32,
-                          device=dev)
+    stride, scratch = _scratch(out_h, width, s, 1, 1, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.page(
@@ -140,8 +145,7 @@ def direct_page_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, *, page_h,
 
 
 def launch_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, height, width):
-    """Launch the MSAA kernel on inputs that ``check_inputs`` has passed;
-    its four int32 bucket planes are scratch of this call."""
+    """Launch the MSAA kernel on inputs that ``check_inputs`` has passed."""
     global msaa_launches
     dev = flat_segments.device
     out = torch.empty((height, width), dtype=torch.uint8, device=dev)
@@ -150,14 +154,13 @@ def launch_msaa(flat_segments, seg_inst_idx, inst_offsets, s_px, s, n, height, w
     lib = _build.load("page")
     chunk, tile_w, x_cull = page_ref.route(width)
     (oy0, (ox0, ox1)), (oy1, _) = page_ref.msaa_lattice()  # both rows share the x pair
-    hulls = torch.empty((-(-s // chunk), 4), dtype=torch.float32, device=dev)
-    bucket = torch.empty((4, height, width + 1), dtype=torch.int32, device=dev)
+    stride, scratch = _scratch(height, width, s, 4, 2, dev)  # the 2 x 2 lattice
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.page_msaa(
             flat_segments.data_ptr(), seg_inst_idx.data_ptr(), inst_offsets.data_ptr(),
             s, n, float(s_px), height, width, chunk, tile_w, int(x_cull), ox0, ox1, oy0, oy1,
-            hulls.data_ptr(), bucket.data_ptr(), out.data_ptr(), stream,
+            stride, scratch.data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"page MSAA kernel launch failed: cudaError_t {err}")

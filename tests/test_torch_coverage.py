@@ -27,7 +27,7 @@ from benchmarks.cjk import UPEM, synthetic_strokes
 from fontrx.kernels import oracle
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.font.font import Font
-from fontrx_torch.kernels import coverage, coverage_ref, winding_ref
+from fontrx_torch.kernels import _build, coverage, coverage_ref, page_ref, winding_ref
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import glyph_segments, pack_glyphs
 
@@ -280,6 +280,156 @@ class TestRefVsJax:
         assert_ties_only(gray, jgray, segs, min_x, max_y, scale, 36, 36, 2)
 
 
+# -- the CUDA kernel's row cull, in em units -------------------------------------
+
+CULL_SIZE = 64              # px: the CJK atlas's tile
+CULL_SCALE = f32(CULL_SIZE / 2048)
+CULL_MAX_Y = CULL_SIZE - 1
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Small tensors: torch on one thread, so parallel test workers do not
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def sub_rows(k, h=CULL_SIZE, max_y=CULL_MAX_Y, scale=CULL_SCALE):
+    """The em-space y of every sub-row the kernel samples: float32
+    ``((f32)(max_y - y) + o[ky]) / scale`` for rows ``y < h``, ``ky < k``."""
+    oys = coverage_ref.sample_offsets(k)[::k, 1]
+    ys = (max_y - np.arange(h)).astype(f32)
+    return np.sort((ys[:, None] + oys[None, :]).ravel() / f32(scale))[::-1].copy()
+
+
+def em_slivers(k, seed=0, n=96):
+    """Em-space quadratics whose control hull's top (or bottom) lies one ulp
+    below (above) a sample sub-row."""
+    rng = np.random.default_rng(seed)
+    cy = sub_rows(k)
+    out = []
+    for i in range(n):
+        y0 = cy[rng.integers(8 * k, len(cy) - 8 * k)]
+        span = f32(rng.uniform(16.0, 1900.0))
+        if i % 2:
+            edge = np.nextafter(y0, f32(-np.inf))
+            far = f32(edge - span)
+        else:
+            edge = np.nextafter(y0, f32(np.inf))
+            far = f32(edge + span)
+        mid = f32(rng.uniform(min(edge, far), max(edge, far)))
+        p0, p2 = (edge, far) if rng.random() < 0.5 else (far, edge)
+        x = rng.uniform(0, 2048, 3).astype(f32)
+        out.append([x[0], p0, x[1], mid, x[2], p2])
+    return np.array(out, f32)
+
+
+def em_near_lines():
+    """Em-space lines whose control point sits a few ulps off their midpoint:
+    ``a`` is tiny and the rounded roots stray far from the hull."""
+    out = []
+    for p0 in (1800.0, 1500.5, 1000.25, 300.0):
+        p2 = p0 - 250.0
+        for j in (1, 2, 3, 5, 8):
+            for sgn in (1, -1):
+                p1 = f32((p0 + p2) / 2) + f32(sgn * j * 2.0**-13)
+                out.append([100.0, p0, 120.0, p1, 140.0, p2])
+    return np.array(out, f32)
+
+
+def em_on_rows(k):
+    """Segments lying exactly on a sub-row, lines and curves ending on one,
+    and a curve whose vertex touches one."""
+    cy = sub_rows(k)
+    y = cy[len(cy) // 2]
+    d = f32(5 / CULL_SCALE)
+    return np.array([
+        [0, y, 500, y, 1000, y],
+        [0, y, 50, y - d, 100, y - 2 * d],
+        [0, y - 2 * d, 50, y - d, 100, y],
+        [0, y - d, 50, y + d, 100, y - d],
+        [0, y, 50, y + d, 100, y],
+    ], f32)
+
+
+def kept_pairs(q, cy):
+    """The kernel's cull, bool ``[S, R]``: sub-row ``cy[j]`` within
+    ``page_ref.margin`` of segment ``q``'s control-hull y-range, the margin
+    taken at ``|cy[j]|`` alone (the least bound of ``|y|`` the proof allows;
+    the kernel takes its block's largest, a wider margin)."""
+    q = torch.as_tensor(q)
+    cy = torch.as_tensor(cy).double()
+    ys = q[:, 1::2].double()
+    lo, hi = ys.amin(1), ys.amax(1)
+    m = torch.stack([page_ref.margin(q, float(abs(y))) for y in cy], 1)
+    return (cy[None] >= lo[:, None] - m) & (cy[None] <= hi[:, None] + m)
+
+
+def dropped_crossings(q, k):
+    """(segment, sub-row) pairs with a crossing that the cull drops."""
+    cy = torch.from_numpy(sub_rows(k))
+    roots, _ = page_ref.row_roots(torch.as_tensor(q), cy)
+    return int(((roots > 0) & ~kept_pairs(q, cy)).sum())
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+class TestCull:
+    def cases(self, font, k):
+        yield "ulp slivers", em_slivers(k)
+        yield "near lines", em_near_lines()
+        yield "on rows", em_on_rows(k)
+        segs, *_ = glyph_batch(font, "AQg@&%Wb", CULL_SIZE, CULL_SIZE)
+        yield "glyphs", segs.reshape(-1, 6)
+
+    def test_keeps_every_crossing(self, font, k, one_torch_thread):
+        for name, q in self.cases(font, k):
+            assert dropped_crossings(q, k) == 0, name
+
+    def test_cases_cross_outside_the_hull(self, k, one_torch_thread):
+        """The slivers and near lines are what the margin is for: without it
+        they cross."""
+        cy = torch.from_numpy(sub_rows(k))
+        for q in (em_slivers(k), em_near_lines()):
+            q = torch.from_numpy(q)
+            roots, _ = page_ref.row_roots(q, cy)
+            ys = q[:, 1::2]
+            outside = (cy[None] > ys.amax(1)[:, None]) | (cy[None] < ys.amin(1)[:, None])
+            assert ((roots > 0) & outside).sum() > 0
+
+    def test_margin_one_unit_short_drops_crossings(self, monkeypatch, k, one_torch_thread):
+        full = page_ref.margin
+        monkeypatch.setattr(page_ref, "margin", lambda q, ymax: full(q, ymax) - 1.0)
+        assert dropped_crossings(em_slivers(k), k) > 0
+
+    def test_fixed_margin_drops_near_line_crossings(self, monkeypatch, k, one_torch_thread):
+        monkeypatch.setattr(page_ref, "margin",
+                            lambda q, ymax: torch.ones(len(q), dtype=torch.float64))
+        assert dropped_crossings(em_near_lines(), k) > 0
+
+    def test_sub_rows_fall(self, k):
+        """The kernel's sub-row order: cy non-increasing, so a segment's kept
+        sub-rows are a run."""
+        cy = sub_rows(k)
+        oys = coverage_ref.sample_offsets(k)[::k, 1]
+        ys = (CULL_MAX_Y - np.arange(CULL_SIZE)).astype(f32)
+        kernel_order = ((ys[:, None] + oys[None, ::-1]).ravel() / CULL_SCALE).astype(f32)
+        np.testing.assert_array_equal(kernel_order, cy)
+
+
+def sliver_batch(k):
+    """The cull's cases as a coverage batch on the 64 px tile."""
+    qs = [em_slivers(k), em_near_lines(), em_on_rows(k)]
+    n = max(len(q) for q in qs)
+    segs = np.zeros((len(qs), n, 3, 2), f32)
+    for i, q in enumerate(qs):
+        segs[i, : len(q)] = q.reshape(-1, 3, 2)
+    anchors = np.zeros(len(qs), np.int32), np.full(len(qs), CULL_MAX_Y, np.int32)
+    return segs, *anchors, CULL_SCALE
+
+
 class TestWrapper:
     def test_cpu_tensor_runs_plain_version(self, font):
         args = glyph_batch(font, "Rx", 40, 48)
@@ -294,6 +444,79 @@ class TestWrapper:
         RasterEngine(device="cpu").coverage_batch(*glyph_batch(font, "k", 24, 24),
                                                   height=24, width=24, samples=2)
         assert coverage.launches == before
+
+
+# -- the kernel's launch plan: coverage.cu's make_plan, transcribed ---------
+
+SMEM_LIMIT, SMEM_TARGET = 227 * 1024, 45 * 1024
+THREADS, WARPS, SMALL_CHUNK, MAX_ROWS, MAX_SUB_ROWS = 256, 8, 32, 16, 256
+
+
+def block_smem(chunk, k, w, wp, rows, group):
+    sub = rows * group
+    return (sub * k * wp * 4 + k * w * 4 + sub * 4 + chunk * 6 * 4 + WARPS * 4
+            + chunk * sub * 2)
+
+
+def launch_plan(k, h, w):
+    """(cols, chunk, rows, group, Wp, shared bytes) of the launch that
+    coverage() makes, None where no block fits. The card holds it to the C
+    (``TestKernelOnCard.test_plan_matches_transcription``)."""
+    wp = (w + 3) // 4 * 4
+    group = min(k, MAX_SUB_ROWS)
+    while group > 0 and block_smem(THREADS, k, w, wp, 1, group) > SMEM_LIMIT:
+        group -= 1
+    if group > 0:
+        rows = 1
+        while (rows < min(MAX_ROWS, h) and (rows + 1) * group <= MAX_SUB_ROWS
+               and block_smem(THREADS, k, w, wp, rows + 1, group) <= SMEM_TARGET):
+            rows += 1
+        return (4 if w >= 128 else 2, THREADS, rows, group, wp,
+                block_smem(THREADS, k, w, wp, rows, group))
+    smem = block_smem(SMALL_CHUNK, k, w, w, 1, 1)
+    return (1, SMALL_CHUNK, 1, 1, w, smem) if smem <= SMEM_LIMIT else None
+
+
+def plan_path(plan, k):
+    if plan[1] == SMALL_CHUNK:
+        return "least"  # one row, a chunk of 32, planes of exactly W cells
+    return "passes" if plan[3] < k else "all"
+
+
+WIDTHS = [
+    (2, 29, 37, "all"),        # a width that is a multiple of nothing
+    (3, 5, 129, "all"),        # four columns a lane, a partial step
+    (4, 3, 4000, "passes"),    # a row's 16 planes do not fit: the sub-rows in passes
+    (28, 2, 1010, "least"),    # not one offset fits beside a full chunk
+]
+
+
+class TestLaunchPlan:
+    @pytest.mark.parametrize("k,h,w,path", WIDTHS)
+    def test_widths_take_their_path(self, k, h, w, path):
+        assert plan_path(launch_plan(k, h, w), k) == path
+
+    def test_full_chunk_just_below_the_least_block(self):
+        """k = 28 at W = 1003 still fits a full chunk, one offset a pass: the
+        least block's case needs a wider row."""
+        assert launch_plan(28, 2, 1003)[1:4] == (THREADS, 1, 1)
+
+    @pytest.mark.parametrize("k", [1, 2, 4, 16, 28, 64])
+    def test_serves_every_width_the_first_port_served(self, k):
+        for w in range(1, 16385, 7):
+            first_port = 64 * 6 * 4 + k * w * 4 + 4 + k * (w + 1) * 4 + w * 4  # one row
+            if first_port <= SMEM_LIMIT:
+                assert launch_plan(k, 1, w) is not None, w
+
+    def test_overflow_has_no_plan(self):
+        assert launch_plan(4, 2, 16384) is None
+
+
+def card_plan(k, h, w):
+    """coverage_plan() of the built kernel, None where no block fits."""
+    plan = np.zeros(6, np.int32)
+    err = _build.load("coverage").coverage_plan(k, h, w, plan.ctypes.data)
+    return None if err else tuple(int(v) for v in plan)
 
 
 @pytest.mark.requires_cuda
@@ -326,6 +549,35 @@ class TestKernelOnCard:
         assert coverage.launches == before + 1 and cov.device.type == "cuda"
         np.testing.assert_array_equal(cov.cpu().numpy(), ref(segs, min_x, max_y, scale,
                                                              64, 64, 2))
+
+    @pytest.mark.parametrize("k", [2, 3])
+    def test_slivers_and_near_lines(self, cuda, k):
+        """The row cull's hard cases: crossings one ulp outside a hull and
+        strays of nearly straight curves."""
+        args = tensors(*sliver_batch(k), device=cuda)
+        out = coverage.coverage_batch(*args, height=CULL_SIZE, width=CULL_SIZE, samples=k)
+        want = coverage_ref.coverage_batch(*args, height=CULL_SIZE, width=CULL_SIZE, samples=k)
+        assert torch.equal(out, want) and bool((out > 0).any())
+
+    @pytest.mark.parametrize("k,h,w,path", WIDTHS)
+    def test_widths(self, cuda, font, k, h, w, path):
+        assert plan_path(card_plan(k, h, w), k) == path
+        segs, min_x, max_y, scale = glyph_batch(font, "AQ", 64, 64)
+        max_y = max_y - 30  # rows through the middle of the glyphs
+        min_x = min_x - w // 2
+        args = tensors(segs, min_x, max_y, scale, cuda)
+        before = coverage.launches
+        out = coverage.coverage_batch(*args, height=h, width=w, samples=k)
+        torch.cuda.synchronize()
+        assert coverage.launches == before + 1
+        want = coverage_ref.coverage_batch(*args, height=h, width=w, samples=k)
+        assert torch.equal(out, want) and bool(((out > 0) & (out < 1)).any())
+
+    def test_plan_matches_transcription(self, cuda):
+        for k in (1, 2, 3, 4, 5, 8, 16, 28, 64, 300):
+            for h in (1, 7, 64):
+                for w in (1, 37, 127, 128, 129, 1003, 1010, 4000, 8000, 16384):
+                    assert card_plan(k, h, w) == launch_plan(k, h, w), (k, h, w)
 
     def test_shared_memory_overflow_raises(self, cuda):
         segs = torch.zeros((1, 4, 3, 2), device=cuda)

@@ -20,6 +20,7 @@ import torch
 from fontrx_torch.kernels import _build, page, page_ref
 from fontrx_torch.scene.layout import layout_text
 from fontrx_torch.scene.page import PageRenderer
+from fontrx_torch.scene.transform import ViewTransform
 from tests.test_torch_page import (
     FONT, SIZES, TEXT, init_view, near_lines, on_rows, page_stream, renderer, sliver_page,
     views, zoomed_views)
@@ -366,6 +367,22 @@ class TestKernelOnCard:
                                         sample_offset=off)
                 assert torch.equal(band, page_ref.direct_page(
                     *inputs, 40, page_h=h, page_w=w, out_h=100, sample_offset=off))
+
+    def test_width_not_a_multiple_of_four(self, font, cuda):
+        """The command line's page, 362 x 239: its bucket rows are padded to
+        a stride of 364 cells, and the MSAA rows are written byte by byte."""
+        w, h = 362, 239
+        pr = PageRenderer(font, layout_text(font, TEXT), w, h, cuda)
+        for view in [ViewTransform.init(font.info.units_per_em, w, h),
+                     *zoomed_views(font, w, h)]:
+            inputs = pr.page_inputs(view)
+            before = page.msaa_launches
+            got = page.direct_page_msaa(*inputs, page_h=h, page_w=w)
+            torch.cuda.synchronize()
+            assert page.msaa_launches == before + 1
+            want = page_ref.direct_page_msaa(*inputs, page_h=h, page_w=w)
+            assert got.shape == (h, w) and torch.equal(got, want)
+            assert bool(((want > 0) & (want < 255)).any())
 
     def test_render_direct_msaa_launches_the_msaa_kernel_once(self, font, cuda):
         pr = renderer(font, "k7", cuda)
