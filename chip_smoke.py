@@ -146,8 +146,15 @@ the sample offsets, and config 5's against the oracle at the four offsets
 (every 128th row from row 32; the oracle runs a row per process), and
 times each kernel and its plain version with CUDA events: the kernel both
 replayed from a CUDA graph (its device time) and called through its wrapper
-(what a caller waits for, host launch overhead included), and each session's
-frames as its user sees them (``stats()``: the page to the host included).
+(what a caller waits for, host launch overhead included; for the fill
+atlases also the host's own time a call, ``call_host_ms``), and each
+session's frames as its user sees them (``stats()``: the page to the host
+included).
+Each ``winding()`` and ``winding_windows()`` launch that it times (the
+atlases, the quick start, ``entry()``, the windowed batches, the SDF's sign,
+the K4 shards and the command line's) is printed with its launch plan
+(``winding.plan``: rows a block, segments a chunk, cells a lane, shared
+bytes).
 Any failure raises and exits non-zero. The last two lines are JSON: the kernels' record (each
 kernel's times beside its bound, from ``fontrx_torch.bound``, its launches
 with the command line's among them, the host pack times and the command
@@ -177,7 +184,7 @@ import torch
 from fontrx_torch.bench import banded as banded_probe
 from fontrx_torch.bench import roofline as roofline_probe
 from fontrx_torch.bench.cjk import UPEM, make_batch
-from fontrx_torch.bench.timing import cuda_ms, graph_ms
+from fontrx_torch.bench.timing import cuda_ms, graph_ms, host_ms
 from fontrx_torch.bound import (
     SDF_CULL_BOX, bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes,
     page_msaa_work, page_work, sdf_kept_pairs, sdf_work, winding_work, window_bytes, window_work)
@@ -627,7 +634,8 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
                             bound_ms=b_ms, bound_by=bound_by, bound_ops=ops))
         record[name].update({f"shard_{key}": [f[key] for f in rec] for key in rec[0]})
         m, band_h = len(s.segments), s.rows
-        print(f"sharded {name}: winding() per shard ({m} glyphs x {band_h} rows), equal to the "
+        print(f"sharded {name}: winding() per shard ({m} glyphs x {band_h} rows, "
+              f"{plan_text(m, band_h, 64)}), equal to the "
               "plain version; graph replay / wrapper call / plain version, bound: "
               + ", ".join(f"{f['ms']:.4f} / {f['call_ms']:.4f} / {f['plain_ms']:.2f} ms, "
                           f"{f['bound_ms']:.5f} ms ({f['bound_by']})" for f in rec))
@@ -1172,6 +1180,13 @@ def live_counts(segments) -> np.ndarray:
     return (seg.reshape(seg.shape[0], seg.shape[1], 6) != 0).any(axis=2).sum(axis=1)
 
 
+def plan_text(b, h, w, win_rows=0) -> str:
+    """The launch plan of ``winding()`` (``win_rows`` 0) or ``winding_windows()``
+    for ``b`` glyphs of ``h`` x ``w``, from the library's ``winding_plan()``."""
+    rows, chunk, cols, smem = winding.plan(b, h, w, win_rows)
+    return f"plan {rows} rows a block, {chunk}-segment chunk, {cols} cells a lane, {smem} B"
+
+
 def cli_kernel_ms(render):
     """The device ms (CUDA-graph replays) of the kernels that a CLI call's
     render call ``(function, arguments)`` launched, on the same inputs, and
@@ -1213,6 +1228,8 @@ def cli_kernel_ms(render):
                          bound_ms(nbytes, ops))
         ops, nbytes, _ = winding_work(batch[0], counts, dev_args[2], dev_args[3], height=h,
                                       width=w)
+        print(f"CLI winding(): {len(counts)} glyphs of {h} x {w}, "
+              f"{plan_text(len(counts), h, w)}")
         if fn.__name__ == "winding_glyph":
             return timed(lambda: winding.winding_batch(*dev_args, height=h, width=w),
                          bound_ms(nbytes, ops))
@@ -1632,16 +1649,18 @@ def main() -> None:
         for kname, (kernel, plain, (ops, nbytes, crossings)) in kernels.items():
             b_ms, bound_by = bound_ms(nbytes, ops)
             call_ms = cuda_ms(kernel, inner=10)
+            call_host_ms = host_ms(kernel)
             kernel_ms = graph_ms(kernel)
             plain_ms = cuda_ms(plain, inner=1)
             record[kname][name] = dict(ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms,
-                                       bound_ms=b_ms, bound_by=bound_by, bound_ops=ops,
-                                       crossings=crossings)
+                                       call_host_ms=call_host_ms, bound_ms=b_ms,
+                                       bound_by=bound_by, bound_ops=ops, crossings=crossings)
             print(f"{name} {kname}: kernel {kernel_ms:.4f} ms on the device "
                   f"({b / kernel_ms * 1e3:.0f} glyphs/s), {call_ms:.4f} ms per wrapper "
-                  f"call; bound {b_ms:.4f} ms ({bound_by}; {ops} FP32 ops, {crossings} "
-                  f"crossings); plain version "
-                  f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)")
+                  f"call ({call_host_ms:.4f} ms of it on the host); bound {b_ms:.4f} ms "
+                  f"({bound_by}; {ops} FP32 ops, {crossings} crossings); plain version "
+                  f"{plain_ms:.3f} ms ({b / plain_ms * 1e3:.0f} glyphs/s)"
+                  + (f"; {plan_text(b, size, size)}" if kname == "winding" else ""))
 
     for name, (segs, min_x, max_y, scale, size) in win_batches.items():
         wins, out = windows[name], win_outputs[name]
@@ -1706,7 +1725,8 @@ def main() -> None:
               f"{engine_ms:.4f} ms per engine call; winding.cu on the same batch "
               f"{full_ms:.4f} ms ({kernel_ms / full_ms:.2f}x); bound {b_ms:.5f} ms ({bound_by}; "
               f"{nbytes} B, {ops} FP32 ops, {crossings} crossings); plain version "
-              f"{plain_ms:.3f} ms")
+              f"{plain_ms:.3f} ms; {plan_text(b, size, size, wins.win_rows)}; winding.cu's "
+              f"{plan_text(b, size, size)}")
 
     for name, (batch, grids, size) in sdf_atlases.items():
         args = packed_to_device(batch, grids, dev)
@@ -1755,7 +1775,9 @@ def main() -> None:
               f"({b / kernel_ms * 1e3:.0f} glyphs/s, {pairs} needed pairs, {kept} kept at the "
               f"{SDF_CULL_BOX[0]} x {SDF_CULL_BOX[1]} box, {kept / pairs:.3f}x), {call_ms:.4f} ms "
               f"per wrapper call (winding + distance); bound {b_ms:.4f} ms ({bound_by}; "
-              f"{ops} FP32 ops); plain version {plain_ms:.3f} ms")
+              f"{ops} FP32 ops); plain version {plain_ms:.3f} ms; its sign's winding() "
+              f"{graph_ms(lambda: winding.winding_batch(*args, height=size, width=size)):.4f} "
+              f"ms on the device, {plan_text(b, size, size)}")
 
     b = len(lb_grids)
     lb_ref = loopblinn_ref.loopblinn_batch(*lb_args, height=LB_SIZE, width=LB_SIZE)
@@ -2079,7 +2101,7 @@ def main() -> None:
             bound_ms=b_ms, bound_by=bound_by, bound_ops=ops)
         print(f"{name} winding: {len(segs)} glyphs of {h}x{w}, kernel "
               f"{record['winding'][name]['ms']:.4f} ms on the device, bound {b_ms:.5f} ms "
-              f"({bound_by})")
+              f"({bound_by}); {plan_text(len(segs), h, w)}")
 
     # --- roofline probe (K13), once --------------------------------------------
     roofline_entry = roofline_phase(dev, record, atlases["ascii256"][:2])

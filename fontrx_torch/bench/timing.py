@@ -1,11 +1,13 @@
 """Device times on a CUDA card: CUDA events around calls, and around
-CUDA-graph replays where the host's launch overhead must not count; and the
-card's name and power limit to stand beside them."""
+CUDA-graph replays where the host's launch overhead must not count; the
+host's own time a call; and the card's name and power limit to stand beside
+them."""
 
 from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -26,6 +28,23 @@ def cuda_ms(fn, *, inner: int, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def host_ms(fn, *, calls: int = 100, reps: int = 5, warmup: int = 3) -> float:
+    """Host ms per call of ``fn``: the median over ``reps`` of the host
+    clock around ``calls`` back-to-back calls, from an idle card and without
+    waiting for it, so the card's time is not counted."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 

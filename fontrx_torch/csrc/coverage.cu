@@ -97,26 +97,6 @@ __device__ __forceinline__ float lattice_offset(int i, int k) {
   return ((float)i + 0.5f) / (float)k - 0.5f;
 }
 
-// The count of columns c in [0, W) with !(xx < cx[c]), from a guess c moved
-// while the predicate says so. cx is non-decreasing, so the columns it
-// covers are a prefix.
-__device__ __forceinline__ int covered_from(float xx, const float* cx, int W, int c) {
-  while (c < W && !(xx < cx[c])) ++c;
-  while (c > 0 && xx < cx[c - 1]) --c;
-  return c;
-}
-
-// How many of the n leading entries of the non-increasing cy satisfy pred.
-template <class Pred>
-__device__ __forceinline__ int leading(const float* cy, int n, Pred pred) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (pred((double)cy[mid])) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 // Shared memory of a block: the bucket planes, cx, cy, the staged chunk,
 // the warps' pair counts and the chunk's pair list.
 template <int kChunk>

@@ -1,7 +1,7 @@
 // What the winding, coverage and page kernels share: the per-(segment, row)
-// root solve, the deposit of a crossing into a row of buckets, the suffix
-// scan that turns a bucket row into per-column windings, and the margin
-// around a segment's y-hull outside which the root solve finds no crossing.
+// root solve, the placement of a crossing among a row's columns, the warp
+// suffix sum of the row scans, and the margin around a segment's y-hull
+// outside which the root solve finds no crossing.
 //
 // The root solve is the float program of fontrx/kernels/winding_pallas_v2.py::
 // phase_a_roots (lines 89-124), op for op, with left-to-right association
@@ -52,24 +52,24 @@ __device__ __forceinline__ void segment_crossings(const float* q, float y_em, Em
   }
 }
 
-// Number of columns c in [0, W) with !(xx < cx[c]). cx is non-decreasing in
-// c (int -> float, + offset and / scale > 0 are monotone), so they are a
-// prefix, found by binary search with the same predicate.
-__device__ __forceinline__ int covered_columns(const float* cx, int W, float xx) {
-  int lo = 0, hi = W;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (!(xx < cx[mid])) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The count of columns c in [0, W) with !(xx < cx[c]), from a guess c moved
+// while the predicate says so. cx is non-decreasing (int -> float, + offset
+// and / scale > 0 are monotone), so the columns it covers are a prefix.
+__device__ __forceinline__ int covered_from(float xx, const float* cx, int W, int c) {
+  while (c < W && !(xx < cx[c])) ++c;
+  while (c > 0 && xx < cx[c - 1]) --c;
+  return c;
 }
 
-// Adds sign to bucket_row[k], k the count of covered columns; a suffix scan
-// of the row then gives every column its winding.
-__device__ __forceinline__ void deposit(int* bucket_row, const float* cx, int W,
-                                        float xx, int sign) {
-  int k = covered_columns(cx, W, xx);
-  if (k > 0) atomicAdd(&bucket_row[k], sign);
+// How many of the n leading entries of the non-increasing cy satisfy pred.
+template <class Pred>
+__device__ __forceinline__ int leading(const float* cy, int n, Pred pred) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pred((double)cy[mid])) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }
 
 // Run by one whole warp: the sum of v over this lane and the lanes above it.
@@ -80,22 +80,6 @@ __device__ __forceinline__ int warp_suffix_sum(int v, int lane) {
     if (lane + off < 32) v += t;
   }
   return v;
-}
-
-// Run by one whole warp over one bucket row of W + 1 entries: calls
-// emit(c, w) for every column c in [0, W), w = sum of bucket_row[j] for
-// j > c. Right to left in 32-column pieces, each an inclusive suffix scan
-// across the lanes plus the carry of the pieces to its right.
-template <class Emit>
-__device__ __forceinline__ void suffix_scan_row(const int* bucket_row, int W, int lane,
-                                                Emit&& emit) {
-  int carry = 0;
-  for (int base = ((W - 1) >> 5) << 5; base >= 0; base -= 32) {
-    const int c = base + lane;
-    const int s = warp_suffix_sum(c < W ? bucket_row[c + 1] : 0, lane);
-    if (c < W) emit(c, s + carry);
-    carry += __shfl_sync(0xffffffffu, s, 0);
-  }
 }
 
 // The margin drops only pairs without a root: a sample row y outside

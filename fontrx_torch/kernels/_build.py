@@ -42,6 +42,11 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, W
              ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
         ),
+        "winding_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, win_rows
+             ctypes.c_int, ctypes.c_void_p],                      # SMs, plan: int32 [4]
+        ),
         "winding_windows": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p,                    # seg, counts

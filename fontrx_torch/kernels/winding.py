@@ -103,6 +103,21 @@ def launch(segments, min_x, max_y, scale, b, s, height, width, sample_offset=(0.
     return out
 
 
+def plan(batch, height, width, win_rows=0, sms=None):
+    """The launch plan of ``winding()`` (``win_rows`` 0) or of
+    ``winding_windows()`` with windows of ``win_rows`` rows, for ``batch``
+    glyphs of ``height`` rows of ``width`` columns on a card of ``sms`` SMs
+    (the current CUDA device's count when None): ``(rows, chunk, cells a
+    lane, shared bytes)`` from the library's ``winding_plan()``, None where
+    no block fits."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    out = np.zeros(4, np.int32)
+    err = _build.load("winding").winding_plan(batch, height, width, win_rows, sms,
+                                              out.ctypes.data)
+    return None if err else tuple(int(v) for v in out)
+
+
 def winding_windows_batch(
     segments_win, counts, min_x, max_y, scale, *, height, width, win_rows,
     sample_offset=(0.0, 0.0),

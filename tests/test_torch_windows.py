@@ -39,6 +39,7 @@ from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import _build, winding, winding_ref
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.windows import pack_windows, win_rows_for
+from tests import test_torch_winding as wt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CJK = ROOT / "tests" / "data" / "cjktest.ttf"
@@ -536,3 +537,110 @@ class TestKernelOnCard:
             winding.winding_windows_batch(segs, counts, anchors_[:1], anchors_, 1.0, **kw)
         with pytest.raises(ValueError):
             winding.winding_windows_batch(segs, counts.cpu(), anchors_, anchors_, 1.0, **kw)
+
+
+# -- the kernel's row cull inside K3's windows (csrc/winding.cu) --------------
+
+@pytest.fixture
+def one_torch_thread():
+    """Small tensors: torch on one thread, so parallel test workers do not
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def sliver_glyphs(size, oy):
+    """Two glyphs of ulp slivers on the rows of a ``size`` px tile, and the
+    em-space near-lines, as a zero-padded batch with their anchors."""
+    cy = wt.row_ys(size - 1, size, oy, f32(size / cjk.UPEM))
+    qs = [wt.em_slivers(cy, seed=1, n=40), wt.em_slivers(cy, seed=2, n=40), wt.em_near_lines()]
+    segs = np.zeros((len(qs), 128, 3, 2), f32)
+    for i, q in enumerate(qs):
+        segs[i, : len(q)] = q.reshape(-1, 3, 2)
+    return segs
+
+
+def window_batches(cjk_glyphs, size, oy):
+    """(name, segments, min_x, max_y, scale) of the windowed cull's cases."""
+    scale = f32(size / cjk.UPEM)
+    yield "strokes", synthetic(2), *anchors(2, size), scale
+    segs, min_x, max_y, _ = stray_batch()
+    yield "near-line", segs, min_x, max_y - 64 + size, scale
+    yield "slivers", sliver_glyphs(size, oy), *anchors(3, size), scale
+    yield "cjktest", *cjk_inputs(cjk_glyphs, size)
+
+
+@pytest.mark.parametrize("oy", wt.CULL_OFFSETS)
+class TestCull:
+    @pytest.mark.parametrize("size", [64, 32])
+    def test_keeps_every_crossing_in_its_windows(self, cjk_glyphs, size, oy, one_torch_thread):
+        """Each window's live copies, on its rows below the height, in blocks
+        of the plan's rows (for this batch and for a 1024-glyph atlas) and of
+        5: the cull keeps every crossing that the
+        plain windowed version counts, so it drops none and adds no row the
+        stream left out."""
+        wr = win_rows_for(size)
+        atlas_rows = wt.launch_plan(1024, size, size, wr)[0]
+        for name, segs, min_x, max_y, scale in window_batches(cjk_glyphs, size, oy):
+            win, counts, nw, cap = pack_windows(segs, max_y, float(scale), size, win_rows=wr)
+            copies = win.reshape(len(segs), nw, cap, 6)
+            plan_rows = wt.launch_plan(len(segs), size, size, wr)[0]
+            for b in range(len(segs)):
+                for w in range(nw):
+                    r0 = w * wr
+                    cy = wt.row_ys(max_y[b] - r0, min(wr, size - r0), oy, scale)
+                    for rows in {atlas_rows, plan_rows, 5}:
+                        assert wt.dropped_crossings(copies[b, w, : counts[b, w]], cy, rows) == 0, \
+                            (name, b, w, rows)
+
+    def test_windows_hold_crossings(self, cjk_glyphs, oy, one_torch_thread):
+        """The cases are not empty: the windows' copies cross their rows."""
+        for name, segs, min_x, max_y, scale in window_batches(cjk_glyphs, 64, oy):
+            out = plain_windows(segs, min_x, max_y, scale, 64, 64, offset=(0.0, oy))
+            assert out.any(), name
+
+
+@pytest.mark.requires_cuda
+class TestWindowsPlanOnCard:
+    @pytest.mark.parametrize("b,h,w,win_rows,path", [c for c in wt.PLAN_CASES if c[3]])
+    def test_paths(self, cuda, b, h, w, win_rows, path):
+        """Each labelled windowed path's plan from the library, and its
+        kernel equal to the plain version, at a few sample offsets."""
+        assert wt.plan_path(winding.plan(b, h, w, win_rows), h, w, win_rows) == path
+        segs = synthetic(2)
+        segs[1, :2] = near_line()
+        segs[1, 2:] = 0
+        segs = np.resize(segs, (b, *segs.shape[1:]))
+        scale = f32(64 / cjk.UPEM)  # 64 px glyphs, their middle rows and columns in view
+        min_x = np.full(b, 32 - w // 2, np.int32)
+        max_y = np.full(b, 31 + h // 2, np.int32)
+        win, counts, _, _ = pack_windows(segs, max_y, float(scale), h, win_rows=win_rows)
+        args = [T(a).to(cuda) for a in (win, counts, min_x, max_y)]
+        for offset in [(0.0, 0.0), (0.25, -1 / 3), (-0.5, 1.0)]:
+            before = winding.windows_launches
+            out = winding.winding_windows_batch(*args, float(scale), height=h, width=w,
+                                                win_rows=win_rows, sample_offset=offset)
+            torch.cuda.synchronize()
+            assert winding.windows_launches == before + 1
+            want = winding_ref.winding_windows_batch(*args, float(scale), height=h, width=w,
+                                                     win_rows=win_rows, sample_offset=offset)
+            assert torch.equal(out, want) and bool((out != 0).any())
+
+    @pytest.mark.parametrize("oy", [0.0, 0.25, -1 / 3, 1.0])
+    @pytest.mark.parametrize("size", [64, 32])
+    def test_slivers_and_near_lines(self, cuda, size, oy):
+        """The row cull's hard cases through the windowed entry: ulp slivers
+        and near-lines, the stray-root glyph among them."""
+        segs, min_x, max_y, scale = stray_batch()
+        segs = np.concatenate([segs[2:, :128], sliver_glyphs(size, oy)])
+        min_x, max_y = anchors(len(segs), size)
+        scale = f32(size / cjk.UPEM)
+        wr = win_rows_for(size)
+        win, counts, _, _ = pack_windows(segs, max_y, float(scale), size, win_rows=wr)
+        args = [T(a).to(cuda) for a in (win, counts, min_x, max_y)]
+        kw = dict(height=size, width=size, win_rows=wr, sample_offset=(0.0, oy))
+        out = winding.winding_windows_batch(*args, float(scale), **kw)
+        want = winding_ref.winding_windows_batch(*args, float(scale), **kw)
+        assert torch.equal(out, want) and bool((out != 0).any())
