@@ -65,8 +65,11 @@ just after:
   equals the same workload unsharded on every pixel (the SDF as int32 bit
   patterns, the page cropped), and the launches are counted exactly. Each
   sharded and unsharded call is timed, and ``winding()`` on each shard of
-  cjk64's two meshes (the shards ``sharding.winding_shards`` cuts) from
-  graph replays, beside its bound, each held to the plain version.
+  cjk64's two meshes (the shards ``sharding.winding_shards`` cuts) and the
+  coverage kernel on each cjk64 glyph shard, and the first shard of each
+  other sharded launch (ascii256's ``winding()`` on 2 x 2, cjk32's SDF,
+  ascii128's Loop-Blinn fill, config 5's first row band), from graph
+  replays, beside its bound, each held to the plain version.
 - **roofline probe** (K13): ``fontrx_torch.bench.roofline.run``, the
   port of ``tools/tpu_probes/tpu_roofline.py``: the four op mixes of
   ``csrc/roofline.cu`` at ``[16, 512, 128]`` x 1024 applications, each loop
@@ -666,6 +669,60 @@ def sharded_phase(dev, atlases, outputs, cov_outputs, sdf_atlases, sdf_outputs, 
           "version; graph replay, bound: " + ", ".join(
               f"{f['ms']:.4f} ms, {f['bound_ms']:.5f} ms ({f['bound_by']})" for f in rec))
 
+    # the first shard of each other sharded launch (ascii256's winding() on 2 x
+    # 2, the SDF's glyph shards, the Loop-Blinn fill's and config 5's row
+    # bands), as sharding cuts it, held to the plain version and timed (graph
+    # replays) beside its bound: the shards share one shape, so the loss
+    # column counts every sharded launch at this time
+    s = sharding.winding_shards(*ascii_padded[:3], height=256, mesh=mesh22)[0]
+    a_scale = ascii_args[3]
+    ops, nbytes, _ = winding_work(ascii_batch.segments[s.glyphs],
+                                  ascii_batch.seg_counts[s.glyphs], s.max_y, a_scale,
+                                  height=s.rows, width=256)
+    one_shard = {"ascii256_2x2": (
+        lambda: winding.winding_batch(s.segments, s.min_x, s.max_y, a_scale, height=s.rows,
+                                      width=256),
+        lambda: winding_ref.winding_batch(s.segments, s.min_x, s.max_y, a_scale,
+                                          height=s.rows, width=256),
+        bound_ms(nbytes, ops), f"{len(s.segments)} glyphs x {s.rows} rows, "
+                               f"{plan_text(len(s.segments), s.rows, 256)}")}
+    seg, mx, my = (a[0] for a in sharding.shard_batch(mesh, *sdf_args[:3]))
+    sdf_shard = (seg, mx, my, sdf_args[3])
+    one_shard["cjk32_sdf_glyphs4"] = (
+        lambda: sdf.sdf_batch(*sdf_shard, height=32, width=32),
+        lambda: sdf_ref.sdf_batch(*sdf_shard, height=32, width=32),
+        sdf_bound(sdf_shard, sdf.sdf_batch(*sdf_shard, height=32, width=32))[:2],
+        f"{len(seg)} glyphs of 32 x 32")
+    lb_shard = (*(a[0] for a in sharding.shard_batch(mesh, *lb_padded[:4])), lb_padded[4])
+    ops, _ = loopblinn_work(*lb_shard, height=LB_SIZE, width=LB_SIZE)
+    one_shard["ascii128_loopblinn_glyphs4"] = (
+        lambda: loopblinn.loopblinn_batch(*lb_shard, height=LB_SIZE, width=LB_SIZE),
+        lambda: loopblinn_ref.loopblinn_batch(*lb_shard, height=LB_SIZE, width=LB_SIZE),
+        bound_ms(loopblinn_bytes(lb_shard[1], LB_SIZE, LB_SIZE), ops),
+        f"{len(lb_shard[0])} glyphs, {lb_plan_text(*lb_shard[0].shape[:2], LB_SIZE, LB_SIZE)}")
+    pw = -(-w5 // sharding.PAGE_TILE_W) * sharding.PAGE_TILE_W
+    rows_per = -(-h5 // (sharding.PAGE_STRIP_ROWS * SHARDS)) * sharding.PAGE_STRIP_ROWS
+    band = (flat5[0], *one, 1.0, 0)
+    ops, _, _ = page_work(*band, page_h=h5, page_w=pw, out_h=rows_per)
+    one_shard["config5_rows4"] = (
+        lambda: page.direct_page(*band, page_h=h5, page_w=pw, out_h=rows_per, mode="winding"),
+        lambda: page_ref.direct_page(*band, page_h=h5, page_w=pw, out_h=rows_per,
+                                     mode="winding"),
+        bound_ms(page_bytes(len(flat5[0]), 1, rows_per, pw, "winding"), ops),
+        f"rows 0-{rows_per - 1} of {h5} x {pw}")
+    for name, (kernel, plain, (b_ms, bound_by), what) in one_shard.items():
+        got = kernel()
+        check(torch.equal(bits(got), bits(plain())),
+              f"{name}: its first shard differs from the plain version")
+        check(torch.equal(bits(got), bits(results[name][0])),
+              f"{name}: its first shard differs from the sharded call's")
+        rec = dict(ms=graph_ms(kernel), plain_ms=cuda_ms(plain, inner=1, reps=3, warmup=1),
+                   bound_ms=b_ms, bound_by=bound_by, shards_timed=1)
+        record[name].update({f"shard_{key}": value for key, value in rec.items()})
+        print(f"sharded {name}: its first shard ({what}) equal to the plain version and to "
+              f"the sharded call's; graph replay {rec['ms']:.4f} ms, bound {b_ms:.5f} ms "
+              f"({bound_by}), plain version {rec['plain_ms']:.2f} ms")
+
     reset_counts()
     t0 = time.perf_counter()
     dryrun_multichip(DRYRUN_SHARDS)
@@ -809,6 +866,7 @@ def banded_phase(dev):
         check(mism == 0, f"{case.name}: {mism} pixels differ from the oracle")
         rec["plain_ms"] = cuda_ms(lambda: winding_ref.winding_banded_batch(*sargs, width=case.size),
                                   inner=1, reps=3, warmup=1)
+        rec["plan"] = winding.banded_plan(b, case.strip[0].shape[1], rec["bands"], case.size)
         record[case.name] = rec
         print(f"{case.name} [{rec['card']}]: {case.glyphs} glyphs in {b} strips of "
               f"{rec['bands']} bands; 0 of {out.numel()} pixels differ from the plain version, 0 "
@@ -819,7 +877,9 @@ def banded_phase(dev):
               f"{rec['bound_bytes']} B); winding() per glyph {rec['winding_ms']:.4f} ms, "
               f"{rec['winding_call_ms']:.4f} ms per call, bound {rec['winding_bound_ms']:.5f} ms "
               f"({rec['winding_bound_by']}); strip / per glyph "
-              f"{rec['ms'] / rec['winding_ms']:.3f}; plain version {rec['plain_ms']:.3f} ms")
+              f"{rec['ms'] / rec['winding_ms']:.3f}; plain version {rec['plain_ms']:.3f} ms; "
+              f"plan {rec['plan']} (rows, chunk, cells a lane, shared bytes, list capacity), "
+              f"winding() per glyph {plan_text(case.glyphs, case.size, case.size)}")
     print(f"banded phase: {time.perf_counter() - t0:.1f} s, the cases' build included")
     return record, launches["winding_banded"], max_err, build_s
 
@@ -1185,6 +1245,12 @@ def plan_text(b, h, w, win_rows=0) -> str:
     for ``b`` glyphs of ``h`` x ``w``, from the library's ``winding_plan()``."""
     rows, chunk, cols, smem = winding.plan(b, h, w, win_rows)
     return f"plan {rows} rows a block, {chunk}-segment chunk, {cols} cells a lane, {smem} B"
+
+
+def lb_plan_text(b, m, h, w) -> str:
+    rows, row_bands, cols, col_bands, chunk, chunks = loopblinn.plan(b, m, h, w)
+    return (f"plan: blocks of {rows} rows x {cols} columns, {row_bands} x {col_bands} a "
+            f"glyph, {chunks} chunk(s) of {chunk} triangles")
 
 
 def cli_kernel_ms(render):
@@ -1834,11 +1900,14 @@ def main() -> None:
     record["loopblinn"]["ascii128"] = dict(
         ms=kernel_ms, plain_ms=plain_ms, call_ms=call_ms, no_triangles_ms=empty_ms,
         bound_ms=b_ms, bound_by=bound_by, bound_bytes=nbytes, bound_ops=ops,
-        inside_pairs=pairs, plain_cpu_s=cpu_s)
+        inside_pairs=pairs, plain_cpu_s=cpu_s,
+        plan=loopblinn.plan(b, lb_tris.shape[1], LB_SIZE, LB_SIZE))
     print(f"ascii128 loopblinn: kernel {kernel_ms:.4f} ms on the device "
           f"({b / kernel_ms * 1e3:.0f} glyphs/s; {empty_ms:.4f} ms with no triangles), "
           f"{call_ms:.4f} ms per wrapper call; bound {b_ms:.5f} ms ({bound_by}; {nbytes} B, "
-          f"{ops} FP32 ops, {pairs} inside pairs); plain version {plain_ms:.3f} ms")
+          f"{ops} FP32 ops, {pairs} inside pairs); plain version {plain_ms:.3f} ms; "
+          f"{lb_plan_text(b, lb_tris.shape[1], LB_SIZE, LB_SIZE)}; 'g' "
+          f"{lb_plan_text(1, len(g_mesh.triangles), g_grid.height, g_grid.width)}")
 
     frames5 = [torch.from_numpy(f).to(dev) for f in frames5]  # the session's host frames
     for name, renderer, views, frames in (("config5", sess5.renderer, views5, frames5),

@@ -98,18 +98,21 @@
 // over the element's segments whose owner is k; any other segment, an owner
 // outside [0, R) included, adds zero there. R is the anchors' first
 // dimension, so it is part of the data, not a knob. The TPU kernels mask each
-// foreign segment's crossings on every row; here one block per (element,
-// band, chunk of rows) COMPACTS the element's segments owned by its band into
-// the shared-memory chunk (a warp ballot and popc per 32 owners), so the
-// solve loop sees only the band's own segments and no thread solves a
-// foreign pair. Every owner is read once per band; there is no host regroup.
-// Their chunk cull and K6's x-window cull are exact and not carried over, and
-// neither are the TPU's lane layout and the transposed output: each band's
-// rows are written straight into out[b][k * 128/R + row][:]. It still runs
-// the first port's band body (namespace first_port below: every pair of the
-// band solved, binary-search deposits, a 32-column scan) until its own
-// redesign. Bound as winding() is: its pairs are those of the per-glyph
-// winding() on the same glyphs.
+// foreign segment's crossings on every row. Here the blocks run the same
+// culled band body as winding(), one per (element, band, band of the band's
+// rows) from make_plan(B x R, 128 / R, W, sms), in the same grid-stride loop,
+// and only the staging differs (OwnedBy): a block first lists the indices of
+// the element's segments whose owner is its band in shared memory, in their
+// order, with a warp ballot and popc per 32 owners, and its chunk loop runs
+// over that list. A foreign segment costs one owner read and no pair. Where
+// the list would not fit the room the plan leaves below kSmemTarget, the
+// owners are taken in windows of the list's capacity (banded_list_cap), each
+// listed and then solved. Their chunk cull and K6's x-window cull are exact
+// and not carried over, and neither are the TPU's lane layout and the
+// transposed output: each band's rows are written straight into
+// out[b][k * 128/R + row][:]. winding_banded_plan() exports the plan. Bound
+// as winding() is: its pairs are those of the per-glyph winding() on the same
+// glyphs, plus one owner read per (segment, band).
 //
 // Float rules: the library is built with -fmad=false, so no multiply-add is
 // contracted (the oracle's contract=False mode), and without fast math, so
@@ -126,7 +129,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// --- the culled band body: winding() and winding_windows() -----------------
+// --- the culled band body: all three entries -------------------------------
 
 constexpr int kMaxRows = 64;               // rows per block, fewer when W is wide
 constexpr size_t kSmemTarget = 45 * 1024;  // five blocks an SM where the rows allow
@@ -137,23 +140,79 @@ constexpr int kMinRows = 8;                // the shortest band a small batch is
 static_assert(kMaxRows <= 256, "a pair names its row in 8 bits");
 
 // Shared memory of a block: the bucket rows, cx, cy, the staged chunk, the
-// warps' pair counts and the chunk's pair list.
-size_t block_smem(int chunk, int W, int Wp, int rows) {
+// warps' pair counts and the chunk's pair list. winding_banded()'s list of
+// its band's segments follows it.
+__host__ __device__ size_t block_smem(int chunk, int W, int Wp, int rows) {
   return (size_t)rows * Wp * sizeof(int) + (size_t)W * sizeof(float) +
          (size_t)rows * sizeof(float) + (size_t)chunk * 6 * sizeof(float) +
          kWarps * sizeof(int) + (size_t)chunk * rows * sizeof(uint16_t);
 }
 
-// One block's work in both entries: the winding of the rows [row0, row0 +
-// rows) of one glyph from the segments gseg[0, S), written to out_rows (row
-// major, W columns). rows_cap is the plan's rows, which sizes the shared
-// memory; kCols the cells a lane holds in the scan; kChunk the segments
-// staged at once.
-template <int kCols, int kChunk>
-__device__ __forceinline__ void culled_band(const float* __restrict__ gseg, int S, int mx,
-                                            int my, float scale, float ox, float oy,
-                                            int row0, int rows, int rows_cap, int W, int Wp,
-                                            unsigned char* smem, int* __restrict__ out_rows) {
+// The staging step of culled_band: it calls solve(seg, n) once per pass over
+// the glyph's segments, where seg(i) points at the pass's i-th segment
+// (p0x p0y p1x p1y p2x p2y in device memory), i in [0, n). Every thread of
+// the block calls it; s_warp is kWarps ints of shared memory it may use
+// between barriers.
+//
+// winding() and winding_windows(): the segments gseg[0, S), one pass.
+struct AllSegments {
+  const float* gseg;
+  int S;
+
+  template <class Solve>
+  __device__ __forceinline__ void operator()(int* s_warp, Solve&& solve) const {
+    solve([&](int i) { return gseg + (size_t)i * 6; }, S);
+  }
+};
+
+// winding_banded(): the segments gseg[0, S) whose owner is `band`, in their
+// order, listed in windows of `cap` owners. For each window the block reads
+// its owners, kThreads at a time; a warp ballot, its popc and the warps'
+// counts place each owned index in `list` (cap ints of shared memory); the
+// pass then solves the listed segments.
+struct OwnedBy {
+  const float* gseg;
+  const int* owners;
+  int S, band, cap;
+  int* list;
+
+  template <class Solve>
+  __device__ __forceinline__ void operator()(int* s_warp, Solve&& solve) const {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int w0 = 0; w0 < S; w0 += cap) {
+      const int end = min(S, w0 + cap);
+      int n = 0;
+      for (int o = w0 + tid; o - tid < end; o += kThreads) {
+        const bool mine = o < end && owners[o] == band;
+        const unsigned m = __ballot_sync(0xffffffffu, mine);
+        if (lane == 0) s_warp[warp] = __popc(m);
+        __syncthreads();
+        int pos = n + __popc(m & ((1u << lane) - 1u));
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const int t = s_warp[w];
+          if (w < warp) pos += t;
+          n += t;
+        }
+        if (mine) list[pos] = o;
+        __syncthreads();  // the counts are read; the window's list is whole
+      }
+      solve([&](int i) { return gseg + (size_t)list[i] * 6; }, n);
+    }
+  }
+};
+
+// One block's work in all three entries: the winding of the rows [row0, row0
+// + rows) of one glyph from the segments that `stage` hands it, written to
+// out_rows (row major, W columns). rows_cap is the plan's rows, which sizes
+// the shared memory; kCols the cells a lane holds in the scan; kChunk the
+// segments staged at once.
+template <int kCols, int kChunk, class Stage>
+__device__ __forceinline__ void culled_band(const Stage& stage, int mx, int my, float scale,
+                                            float ox, float oy, int row0, int rows,
+                                            int rows_cap, int W, int Wp, unsigned char* smem,
+                                            int* __restrict__ out_rows) {
   static_assert(kChunk % 32 == 0 && kChunk <= kThreads && kChunk <= 256,
                 "a chunk is whole warps, and a pair names its segment in 8 bits");
   int* bucket = reinterpret_cast<int*>(smem);                             // [rows_cap][Wp]
@@ -179,69 +238,73 @@ __device__ __forceinline__ void culled_band(const float* __restrict__ gseg, int 
   // the largest |y| of the band's rows: its first or last
   const double ymax = fmax(fabs((double)cy[0]), fabs((double)cy[rows - 1]));
 
-  for (int s0 = 0; s0 < S; s0 += kChunk) {
-    const int ns = min(kChunk, S - s0);
-    // stage the chunk, a thread a segment, and take its run of rows
-    int count = 0, first = 0;
-    if (tid < ns) {
-      float q[6];
+  // the segments, a chunk at a time, in each pass that the staging step makes
+  stage(s_warp, [&](auto seg, int S) {
+    for (int s0 = 0; s0 < S; s0 += kChunk) {
+      const int ns = min(kChunk, S - s0);
+      // stage the chunk, a thread a segment, and take its run of rows
+      int count = 0, first = 0;
+      if (tid < ns) {
+        float q[6];
+        const float* g = seg(s0 + tid);
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        q[i] = gseg[(size_t)(s0 + tid) * 6 + i];
-        sq[tid * 6 + i] = q[i];
-      }
-      const float a = q[1] - 2.0f * q[3] + q[5];
-      // segment_crossings finds no root on any row of a line with p2y == p0y
-      if (!(a == 0.0f && !(q[5] - q[1] != 0.0f))) {
-        const float hmin = fminf(fminf(q[1], q[3]), q[5]);
-        const float hmax = fmaxf(fmaxf(q[1], q[3]), q[5]);
-        const double m = segment_margin(q[1], q[3], q[5], a, ymax);
-        const double lo = (double)hmin - m, hi = (double)hmax + m;
-        if (lo <= hi) {
-          first = leading(cy, rows, [&](double y) { return y > hi; });
-          count = max(leading(cy, rows, [&](double y) { return y >= lo; }) - first, 0);
+        for (int i = 0; i < 6; ++i) {
+          q[i] = g[i];
+          sq[tid * 6 + i] = q[i];
+        }
+        const float a = q[1] - 2.0f * q[3] + q[5];
+        // segment_crossings finds no root on any row of a line with p2y == p0y
+        if (!(a == 0.0f && !(q[5] - q[1] != 0.0f))) {
+          const float hmin = fminf(fminf(q[1], q[3]), q[5]);
+          const float hmax = fmaxf(fmaxf(q[1], q[3]), q[5]);
+          const double m = segment_margin(q[1], q[3], q[5], a, ymax);
+          const double lo = (double)hmin - m, hi = (double)hmax + m;
+          if (lo <= hi) {
+            first = leading(cy, rows, [&](double y) { return y > hi; });
+            count = max(leading(cy, rows, [&](double y) { return y >= lo; }) - first, 0);
+          }
         }
       }
-    }
-    // the block's exclusive prefix of the counts
-    int incl = count;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += t;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int base = 0, total = 0;
+      // the block's exclusive prefix of the counts
+      int incl = count;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      if (lane == 31) s_warp[warp] = incl;
+      __syncthreads();
+      int base = 0, total = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = s_warp[w];
-      if (w < warp) base += t;
-      total += t;
-    }
-    // the chunk's pairs, listed in the prefix's order
-    for (int j = 0, off = base + incl - count; j < count; ++j)
-      s_pairs[off + j] = (uint16_t)(tid | (first + j) << 8);
-    __syncthreads();
+      for (int w = 0; w < kWarps; ++w) {
+        const int t = s_warp[w];
+        if (w < warp) base += t;
+        total += t;
+      }
+      // the chunk's pairs, listed in the prefix's order
+      for (int j = 0, off = base + incl - count; j < count; ++j)
+        s_pairs[off + j] = (uint16_t)(tid | (first + j) << 8);
+      __syncthreads();
 
-    for (int p = tid; p < total; p += kThreads) {
-      const int pair = s_pairs[p];
-      const int t = pair & 255, r = pair >> 8;
-      int* brow = bucket + (size_t)r * Wp;
-      segment_crossings(sq + t * 6, cy[r], [&](float xx, int sign) {
-        // cx[c] <= xx for c up to about xx * scale - mx - ox
-        const float guess = xx * scale - (float)mx - ox;
-        int c;
-        if (!(guess == guess)) {
-          c = W;  // xx is NaN: !(xx < cx) everywhere
-        } else {
-          c = guess < 0.0f ? 0 : (guess >= (float)W ? W : (int)guess + 1);
-        }
-        c = covered_from(xx, cx, W, c);
-        if (c > 0) atomicAdd(&brow[c - 1], sign);
-      });
+      for (int p = tid; p < total; p += kThreads) {
+        const int pair = s_pairs[p];
+        const int t = pair & 255, r = pair >> 8;
+        int* brow = bucket + (size_t)r * Wp;
+        segment_crossings(sq + t * 6, cy[r], [&](float xx, int sign) {
+          // cx[c] <= xx for c up to about xx * scale - mx - ox
+          const float guess = xx * scale - (float)mx - ox;
+          int c;
+          if (!(guess == guess)) {
+            c = W;  // xx is NaN: !(xx < cx) everywhere
+          } else {
+            c = guess < 0.0f ? 0 : (guess >= (float)W ? W : (int)guess + 1);
+          }
+          c = covered_from(xx, cx, W, c);
+          if (c > 0) atomicAdd(&brow[c - 1], sign);
+        });
+      }
+      __syncthreads();  // the chunk and its prefix are consumed
     }
-    __syncthreads();  // the chunk and its prefix are consumed
-  }
+  });
 
   // a warp a row, right to left: out[c] = sum of cells j >= c
   constexpr int kStep = 32 * kCols;
@@ -301,8 +364,8 @@ winding_kernel(const float* __restrict__ seg, const int* __restrict__ min_x,
   for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
     const int b = (int)(blk / bands);
     const int row0 = (int)(blk - (long long)b * bands) * rows;
-    culled_band<kCols, kChunk>(seg + (size_t)b * S * 6, S, min_x[b], max_y[b], scale, ox, oy,
-                               row0, min(rows, H - row0), rows, W, Wp, smem_raw,
+    culled_band<kCols, kChunk>(AllSegments{seg + (size_t)b * S * 6, S}, min_x[b], max_y[b],
+                               scale, ox, oy, row0, min(rows, H - row0), rows, W, Wp, smem_raw,
                                out + ((size_t)b * H + row0) * W);
   }
 }
@@ -325,9 +388,9 @@ winding_windows_kernel(const float* __restrict__ seg, const int* __restrict__ co
     const long long end = min(w0 + win_rows, (long long)H);
     if (row0 >= end) continue;  // a band past the last window's rows below H
     const int n = min(max(counts[bw], 0), cap);
-    culled_band<kCols, kChunk>(seg + (size_t)bw * cap * 6, n, min_x[b], max_y[b], scale, ox,
-                               oy, (int)row0, (int)min((long long)rows, end - row0), rows, W,
-                               Wp, smem_raw, out + ((size_t)b * H + row0) * W);
+    culled_band<kCols, kChunk>(AllSegments{seg + (size_t)bw * cap * 6, n}, min_x[b], max_y[b],
+                               scale, ox, oy, (int)row0, (int)min((long long)rows, end - row0),
+                               rows, W, Wp, smem_raw, out + ((size_t)b * H + row0) * W);
   }
 }
 
@@ -432,186 +495,72 @@ cudaError_t launch_windows(const Plan& p, const float* seg, const int* counts,
   return cudaGetLastError();
 }
 
-// --- the first port's band body: winding_banded() -------------------------
+// --- winding_banded(): the strips ---------------------------------------------
 
-namespace first_port {
+constexpr int kStripRows = 128;  // rows of a banded element's strip
 
-constexpr int kMaxRows = 16;        // rows per block, fewer when W is wide
-constexpr int kSegChunk = 64;       // segments staged per shared-memory chunk
-constexpr int kStripRows = 128;     // rows of a banded element's strip
-
-static_assert(kSegChunk % 32 == 0 && kSegChunk <= kThreads, "a chunk is whole warps");
-
-struct SegmentChunk {
-  float v[kSegChunk * 6];           // p0x p0y p1x p1y p2x p2y per segment
-};
-
-// Number of columns c in [0, W) with !(xx < cx[c]). cx is non-decreasing in
-// c (int -> float, + offset and / scale > 0 are monotone), so they are a
-// prefix, found by binary search with the same predicate.
-__device__ __forceinline__ int covered_columns(const float* cx, int W, float xx) {
-  int lo = 0, hi = W;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (!(xx < cx[mid])) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The capacity of winding_banded()'s list of a band's segments, in ints: the
+// room the plan leaves below kSmemTarget, at least one pass of the owners
+// (kThreads), at most S rounded up to whole warps, and no more than
+// kSmemLimit leaves. 0 when not even one fits.
+int banded_list_cap(const Plan& p, int S) {
+  long long cap = ((long long)kSmemTarget - (long long)p.smem) / (long long)sizeof(int);
+  if (cap < kThreads) cap = kThreads;
+  const long long whole = ((long long)S + 31) / 32 * 32;
+  if (cap > whole) cap = whole > 32 ? whole : 32;
+  const long long room = ((long long)kSmemLimit - (long long)p.smem) / (long long)sizeof(int);
+  if (cap > room) cap = room;
+  return (int)(cap > 0 ? cap : 0);
 }
 
-// Adds sign to bucket_row[k], k the count of covered columns; a suffix scan
-// of the row then gives every column its winding.
-__device__ __forceinline__ void deposit(int* bucket_row, const float* cx, int W,
-                                        float xx, int sign) {
-  int k = covered_columns(cx, W, xx);
-  if (k > 0) atomicAdd(&bucket_row[k], sign);
-}
-
-// Run by one whole warp over one bucket row of W + 1 entries: calls
-// emit(c, w) for every column c in [0, W), w = sum of bucket_row[j] for
-// j > c. Right to left in 32-column pieces, each an inclusive suffix scan
-// across the lanes plus the carry of the pieces to its right.
-template <class Emit>
-__device__ __forceinline__ void suffix_scan_row(const int* bucket_row, int W, int lane,
-                                                Emit&& emit) {
-  int carry = 0;
-  for (int base = ((W - 1) >> 5) << 5; base >= 0; base -= 32) {
-    const int c = base + lane;
-    const int s = warp_suffix_sum(c < W ? bucket_row[c + 1] : 0, lane);
-    if (c < W) emit(c, s + carry);
-    carry += __shfl_sync(0xffffffffu, s, 0);
-  }
-}
-
-// Stages those of the segments [s0, s0 + n) whose owner is `band`, packed to
-// the front of the chunk in their order; returns how many. Each of the first
-// kSegChunk threads reads one owner; a ballot per warp and its popc give each
-// owned segment its place. counts holds kSegChunk / 32 ints of shared memory.
-struct OwnedBy {
-  const float* gseg;
-  const int* owners;
-  int band;
-  int* counts;
-
-  __device__ __forceinline__ int operator()(float* v, int s0, int n) const {
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    bool mine = false;
-    int pos = 0;
-    if (warp < kSegChunk / 32) {  // whole warps
-      mine = tid < n && owners[s0 + tid] == band;
-      const unsigned m = __ballot_sync(0xffffffffu, mine);
-      if (lane == 0) counts[warp] = __popc(m);
-      pos = __popc(m & ((1u << lane) - 1u));
-    }
-    __syncthreads();
-    int ns = 0;
-    for (int w = 0; w < kSegChunk / 32; ++w) {
-      if (w < warp) pos += counts[w];
-      ns += counts[w];
-    }
-    if (mine) {
-      const float* src = gseg + (size_t)(s0 + tid) * 6;
-      for (int i = 0; i < 6; ++i) v[pos * 6 + i] = src[i];
-    }
-    return ns;
-  }
-};
-
-// The first port's band body: the winding of the rows [row0, row0 + rows)
-// of one glyph from the segments that `stage` puts in the chunk from its
-// array [0, S), written to out_rows (row major, W columns). smem holds the
-// segment chunk, cy[rows], cx[W] and bucket[rows][W + 1]. Every thread calls
-// stage, between two barriers.
-template <class Stage>
-__device__ __forceinline__ void band_winding(const Stage& stage, int S, int mx, int my,
-                                             float scale, float ox, float oy, int row0,
-                                             int rows, int W, unsigned char* smem,
-                                             int* __restrict__ out_rows) {
-  SegmentChunk* chunk = reinterpret_cast<SegmentChunk*>(smem);
-  float* cy = reinterpret_cast<float*>(smem + sizeof(SegmentChunk));  // [rows]
-  float* cx = cy + rows;                            // [W]
-  int* bucket = reinterpret_cast<int*>(cx + W);     // [rows][W + 1]
-  const int tid = threadIdx.x;
-
-  for (int c = tid; c < W; c += kThreads) cx[c] = ((float)(mx + c) + ox) / scale;
-  for (int r = tid; r < rows; r += kThreads) cy[r] = ((float)(my - (row0 + r)) + oy) / scale;
-  for (int i = tid; i < rows * (W + 1); i += kThreads) bucket[i] = 0;
-
-  for (int s0 = 0; s0 < S; s0 += kSegChunk) {
-    __syncthreads();  // cx/bucket ready; the previous chunk fully consumed
-    const int ns = stage(chunk->v, s0, min(kSegChunk, S - s0));
-    __syncthreads();
-
-    for (int p = tid; p < ns * rows; p += kThreads) {
-      const int r = p % rows;
-      int* brow = bucket + r * (W + 1);
-      segment_crossings(chunk->v + (p / rows) * 6, cy[r], [&](float xx, int sign) {
-        deposit(brow, cx, W, xx, sign);
-      });
-    }
-  }
-  __syncthreads();
-
-  // out[row0 + r][c] = sum_{j > c} bucket[r][j]: one warp per row
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < rows; r += kThreads >> 5) {
-    int* orow = out_rows + (size_t)r * W;
-    suffix_scan_row(bucket + r * (W + 1), W, lane, [&](int c, int w) { orow[c] = w; });
-  }
-}
-
-// The ballot counts of OwnedBy, ahead of band_winding's shared memory.
-constexpr size_t kCountBytes = 16;
-static_assert(kCountBytes >= kSegChunk / 32 * sizeof(int), "room for the ballot counts");
-
-// winding_banded(): one block per (element, band, chunk of `rows` rows of
-// the band's band_h), the element's segments owned by the band.
-__global__ void __launch_bounds__(kThreads)
+// winding_banded(): blocks (element, band, band of `rows` of the band's
+// band_h rows), the element's segments that the band owns.
+template <int kCols, int kChunk>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 winding_banded_kernel(const float* __restrict__ seg, const int* __restrict__ owners,
-                      const int* __restrict__ min_x, const int* __restrict__ max_y,
-                      float scale, float ox, float oy, int B, int S, int band_h, int rows,
-                      int chunks, int W, int* __restrict__ out) {
-  extern __shared__ unsigned char smem_raw[];
-  const int b = blockIdx.x;
-  const int k = blockIdx.y / chunks;
-  const int row0 = (blockIdx.y - k * chunks) * rows;  // in the band
-  const OwnedBy stage{seg + (size_t)b * S * 6, owners + (size_t)b * S, k,
-                      reinterpret_cast<int*>(smem_raw)};
-  const size_t anchor = (size_t)k * B + b;
-  band_winding(stage, S, min_x[anchor], max_y[anchor], scale, ox, oy, row0,
-               min(rows, band_h - row0), W, smem_raw + kCountBytes,
-               out + ((size_t)b * kStripRows + k * band_h + row0) * W);
+                      const int* __restrict__ min_x, const int* __restrict__ max_y, float scale,
+                      float ox, float oy, int B, int S, int R, int band_h, int W, int Wp,
+                      int rows, int subs, int cap, long long blocks, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* list = reinterpret_cast<int*>(smem_raw + block_smem(kChunk, W, Wp, rows));
+  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const long long bk = blk / subs;  // b * R + k
+    const int b = (int)(bk / R);
+    const int k = (int)(bk - (long long)b * R);
+    const int row0 = (int)(blk - bk * subs) * rows;  // in the band
+    const size_t anchor = (size_t)k * B + b;
+    const OwnedBy stage{seg + (size_t)b * S * 6, owners + (size_t)b * S, S, k, cap, list};
+    culled_band<kCols, kChunk>(stage, min_x[anchor], max_y[anchor], scale, ox, oy, row0,
+                               min(rows, band_h - row0), rows, W, Wp, smem_raw,
+                               out + ((size_t)b * kStripRows + k * band_h + row0) * W);
+  }
 }
 
-cudaError_t winding_banded(const float* seg, const int* owners, const int* min_x,
-                           const int* max_y, float scale, float ox, float oy, int B, int S,
-                           int R, int W, int* out, cudaStream_t stream) {
-  if (B < 0 || S < 0 || R < 1 || kStripRows % R != 0 || W < 0 || !(scale > 0.0f))
-    return cudaErrorInvalidValue;
-  if (B == 0 || W == 0) return cudaSuccess;
+// The plan of winding_banded() for B elements of S segments in R bands of W
+// columns on a card of `sms` SMs: winding()'s plan for B x R glyphs of 128 /
+// R rows, and the list's capacity.
+bool banded_plan(int B, int S, int R, int W, int sms, Plan& p, int& cap) {
+  if (!make_plan((long long)B * R, kStripRows / R, W, sms, p)) return false;
+  cap = banded_list_cap(p, S);
+  return cap > 0;
+}
 
+template <int kCols, int kChunk>
+cudaError_t launch_banded(const Plan& p, int cap, const float* seg, const int* owners,
+                          const int* min_x, const int* max_y, float scale, float ox, float oy,
+                          int B, int S, int R, int W, int* out, cudaStream_t stream) {
+  auto kernel = winding_banded_kernel<kCols, kChunk>;
+  const size_t smem = p.smem + (size_t)cap * sizeof(int);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int band_h = kStripRows / R;
-  const size_t fixed = kCountBytes + sizeof(SegmentChunk) + (size_t)W * sizeof(float);
-  const size_t per_row = sizeof(float) + (size_t)(W + 1) * sizeof(int);
-  if (fixed + per_row > kSmemLimit) return cudaErrorInvalidValue;
-  int rows = (int)((kSmemLimit - fixed) / per_row);
-  if (rows > kMaxRows) rows = kMaxRows;
-  if (rows > band_h) rows = band_h;
-  const size_t smem = fixed + (size_t)rows * per_row;
-  const int chunks = (band_h + rows - 1) / rows;
-
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        winding_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((unsigned)B, (unsigned)(R * chunks));
-  winding_banded_kernel<<<grid, kThreads, smem, stream>>>(
-      seg, owners, min_x, max_y, scale, ox, oy, B, S, band_h, rows, chunks, W, out);
+  const int subs = (band_h + p.rows - 1) / p.rows;
+  const long long blocks = (long long)B * R * subs;
+  kernel<<<grid_of(blocks), kThreads, smem, stream>>>(seg, owners, min_x, max_y, scale, ox, oy,
+                                                      B, S, R, band_h, W, p.Wp, p.rows, subs,
+                                                      cap, blocks, out);
   return cudaGetLastError();
 }
-
-}  // namespace first_port
 
 }  // namespace
 
@@ -628,6 +577,21 @@ extern "C" cudaError_t winding_plan(int B, int H, int W, int win_rows, int sms, 
     return cudaErrorInvalidValue;
   const int v[4] = {p.rows, p.chunk, p.cols, (int)p.smem};
   for (int i = 0; i < 4; ++i) plan[i] = v[i];
+  return cudaSuccess;
+}
+
+// The plan winding_banded() launches for B elements of S segments in R bands
+// of W columns on a card of `sms` SMs into plan[5]: {rows, chunk, cells a
+// lane, shared bytes with the list, the list's capacity in segments};
+// cudaErrorInvalidValue when no block fits or R does not divide 128.
+extern "C" cudaError_t winding_banded_plan(int B, int S, int R, int W, int sms, int* plan) {
+  if (B < 1 || S < 0 || R < 1 || kStripRows % R != 0 || W < 1 || sms < 1)
+    return cudaErrorInvalidValue;
+  Plan p;
+  int cap = 0;
+  if (!banded_plan(B, S, R, W, sms, p, cap)) return cudaErrorInvalidValue;
+  const int v[5] = {p.rows, p.chunk, p.cols, (int)(p.smem + (size_t)cap * sizeof(int)), cap};
+  for (int i = 0; i < 5; ++i) plan[i] = v[i];
   return cudaSuccess;
 }
 
@@ -673,6 +637,21 @@ extern "C" cudaError_t winding_banded(const float* seg, const int* owners, const
                                       const int* max_y, float scale, float ox, float oy,
                                       int B, int S, int R, int W, int* out,
                                       cudaStream_t stream) {
-  return first_port::winding_banded(seg, owners, min_x, max_y, scale, ox, oy, B, S, R, W, out,
-                                    stream);
+  if (B < 0 || S < 0 || R < 1 || kStripRows % R != 0 || W < 0 || !(scale > 0.0f))
+    return cudaErrorInvalidValue;
+  if (B == 0 || W == 0) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  Plan p;
+  int cap = 0;
+  if (!banded_plan(B, S, R, W, sms, p, cap)) return cudaErrorInvalidValue;
+  if (p.cols == 4)
+    return launch_banded<4, kThreads>(p, cap, seg, owners, min_x, max_y, scale, ox, oy, B, S, R,
+                                      W, out, stream);
+  if (p.cols == 2)
+    return launch_banded<2, kThreads>(p, cap, seg, owners, min_x, max_y, scale, ox, oy, B, S, R,
+                                      W, out, stream);
+  return launch_banded<1, kSmallChunk>(p, cap, seg, owners, min_x, max_y, scale, ox, oy, B, S,
+                                       R, W, out, stream);
 }

@@ -56,6 +56,11 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int,                          # H, W
              ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
         ),
+        "winding_banded_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, R, W
+             ctypes.c_int, ctypes.c_void_p],                      # SMs, plan: int32 [5]
+        ),
         "winding_banded": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p,                    # seg, owners
@@ -91,6 +96,10 @@ _SIGNATURES = {
          ctypes.c_float, ctypes.c_float, ctypes.c_float,      # scale, ox, oy
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
          ctypes.c_void_p, ctypes.c_void_p],                   # out, stream
+    ), "loopblinn_plan": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, M, H, W
+         ctypes.c_int, ctypes.c_void_p],                      # SMs, plan: int32 [6]
     )},
     "roofline": {
         "roofline": (

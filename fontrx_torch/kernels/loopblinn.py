@@ -115,6 +115,20 @@ def loopblinn_batch(
     return out
 
 
+def plan(batch, triangles, height, width, sms=None):
+    """The launch plan of ``loopblinn()`` for ``batch`` glyphs of
+    ``triangles`` triangles on ``height x width`` rasters on a card of
+    ``sms`` SMs (the current CUDA device's count when None): ``(rows a band,
+    row bands, columns a band, column bands, triangles a chunk, chunks)``
+    from the library's ``loopblinn_plan()``, None for an empty launch."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    out = np.zeros(6, np.int32)
+    err = _build.load("loopblinn").loopblinn_plan(batch, triangles, height, width, sms,
+                                                  out.ctypes.data)
+    return None if err else tuple(int(v) for v in out)
+
+
 def loopblinn_fill(tri_glyph, grid, device=None) -> np.ndarray:
     """One glyph's triangle-mesh fill: uint8 ``[H, W]``, 255 where covered,
     on ``grid``. ``device=None`` means the first CUDA device; the CPU runs

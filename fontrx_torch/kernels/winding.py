@@ -118,6 +118,20 @@ def plan(batch, height, width, win_rows=0, sms=None):
     return None if err else tuple(int(v) for v in out)
 
 
+def banded_plan(batch, segments, bands, width, sms=None):
+    """The launch plan of ``winding_banded()`` for ``batch`` elements of
+    ``segments`` slots in ``bands`` bands of ``width`` columns on a card of
+    ``sms`` SMs (the current CUDA device's count when None): ``(rows,
+    chunk, cells a lane, shared bytes, the list's capacity)`` from the
+    library's ``winding_banded_plan()``, None where no block fits."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    out = np.zeros(5, np.int32)
+    err = _build.load("winding").winding_banded_plan(batch, segments, bands, width, sms,
+                                                     out.ctypes.data)
+    return None if err else tuple(int(v) for v in out)
+
+
 def winding_windows_batch(
     segments_win, counts, min_x, max_y, scale, *, height, width, win_rows,
     sample_offset=(0.0, 0.0),

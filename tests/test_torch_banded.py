@@ -40,6 +40,7 @@ from fontrx_torch.font.font import Font
 from fontrx_torch.kernels import winding, winding_ref
 from fontrx_torch.kernels.grid import RasterGrid
 from fontrx_torch.pack.segments import glyph_segments, xsort_segments
+from tests import test_torch_winding as wt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHARS = "Ag@Q&%8B"
@@ -376,6 +377,85 @@ class TestProbe:
                 == owned * 24 + b * 4 * 4 + 2 * b * 8 + b * 128 * 10 * 4)
 
 
+# -- the launch plan: winding.cu's banded_plan, transcribed -----------------
+
+def list_cap(smem, s):
+    """``banded_list_cap``: the room the plan leaves below the shared-memory
+    target, at least one pass of the owners, at most ``s`` rounded up to
+    whole warps, within the limit; 0 when not one fits."""
+    cap = max((wt.SMEM_TARGET - smem) // 4, wt.THREADS)
+    whole = -(-s // 32) * 32
+    if cap > whole:
+        cap = max(whole, 32)
+    return max(min(cap, (wt.SMEM_LIMIT - smem) // 4), 0)
+
+
+def banded_launch_plan(b, s, bands, w, sms=wt.H100_SMS):
+    """(rows, chunk, cells a lane, shared bytes with the list, the list's
+    capacity) of the launch ``winding_banded()`` makes for ``b`` elements of
+    ``s`` segment slots in ``bands`` bands of ``w`` columns: ``winding()``'s
+    plan for ``b * bands`` glyphs of ``128 / bands`` rows, and the list of a
+    band's segments. None where no block fits. The card holds it to the C
+    (``TestOnCard.test_plan_matches_transcription``)."""
+    plan = wt.launch_plan(b * bands, winding_ref.STRIP_ROWS // bands, w, sms=sms)
+    if plan is None:
+        return None
+    cap = list_cap(plan[3], s)
+    return (*plan[:3], plan[3] + 4 * cap, cap) if cap else None
+
+
+def first_port_served(w):
+    """Whether the first port's ``winding_banded()`` launched at width
+    ``w``: its ballot counts, a chunk of 64 segments, cx and one row of cy
+    and ``W + 1`` buckets fit a block's shared memory (its grid, ``B`` x
+    128 rows at most, always fit)."""
+    return 16 + 64 * 6 * 4 + w * 4 + 4 + (w + 1) * 4 <= wt.SMEM_LIMIT
+
+
+# (elements, slots, bands, width, rows, windows of the owners): the probe's
+# four cases, one band a block, and owners taken in more than one window
+BANDED_PLANS = [
+    (3011, 128, 2, 64, 32, 1),      # dejavu64: 6,022 glyphs, cap 128 (8-rounded)
+    (1506, 192, 4, 32, 32, 1),      # dejavu32
+    (500, 576, 2, 64, 32, 1),       # synth64: 2 x 288 slots
+    (250, 1152, 4, 32, 32, 1),      # synth32
+    (3, 192, 128, 300, 1, 1),       # a band of one row (test_any_band_count)
+    (2, 600, 128, 5000, 1, 3),      # the plan's rows fill the target: 256-owner windows
+    (300, 4000, 1, 64, 43, 3),      # 1,613-owner windows beside 43 rows
+    (2, 40, 2, 28900, 1, 1),        # the least block
+]
+
+
+class TestLaunchPlan:
+    @pytest.mark.parametrize("b,s,bands,w,rows,windows", BANDED_PLANS)
+    def test_cases_take_their_plan(self, b, s, bands, w, rows, windows):
+        plan = banded_launch_plan(b, s, bands, w)
+        assert plan[0] == rows and -(-s // plan[4]) == windows
+        assert plan[3] <= wt.SMEM_LIMIT
+
+    def test_probe_cases_keep_the_plan_of_winding(self):
+        """The strips' blocks are those of the per-glyph ``winding()`` on the
+        same glyphs, with the list beside them below the target."""
+        for b, s, bands, w, _, _ in BANDED_PLANS[:4]:
+            plan = banded_launch_plan(b, s, bands, w)
+            assert plan[:3] == wt.launch_plan(b * bands, 128 // bands, w)[:3]
+            assert plan[3] <= wt.SMEM_TARGET
+
+    @pytest.mark.parametrize("bands", [1, 2, 4, 8, 32, 128])
+    def test_serves_every_shape_the_first_port_served(self, bands):
+        for b in (1, 1024):
+            for s in (0, 1, 64, 2000):
+                for w in [*range(1, 30001, 97), 28860, 28861, 28862, 28947, 28948]:
+                    if first_port_served(w):
+                        plan = banded_launch_plan(b, s, bands, w)
+                        assert plan is not None and plan[4] >= 1, (b, s, bands, w)
+
+    def test_the_first_ports_widest_row(self):
+        widest = max(w for w in range(28000, 29000) if first_port_served(w))
+        assert banded_launch_plan(1, 64, 1, widest)[1] == wt.SMALL_CHUNK
+        assert banded_launch_plan(1, 64, 1, 28948) is None
+
+
 @pytest.mark.requires_cuda
 class TestOnCard:
     @pytest.mark.parametrize("bands,px,offset", CASES, ids=IDS)
@@ -407,3 +487,50 @@ class TestOnCard:
             rec = banded.run_case(case, cuda)
             assert rec["differ"] == 0 and rec["launches"] == rec["winding_launches"] == 1
             assert rec["ms"] > 0 and rec["card"]
+
+    def test_plan_matches_transcription(self, cuda):
+        card = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert winding.banded_plan(8, 64, 2, 64) == winding.banded_plan(8, 64, 2, 64, sms=card)
+        for sms in (card, 1, 66, wt.H100_SMS):
+            for b in (1, 8, 250, 3011):
+                for s in (0, 8, 128, 600, 1152, 4000):
+                    for bands in (1, 2, 4, 8, 32, 128):
+                        for w in (1, 32, 37, 64, 128, 300, 1500, 5000, 28861, 28947, 28948):
+                            assert (winding.banded_plan(b, s, bands, w, sms=sms)
+                                    == banded_launch_plan(b, s, bands, w, sms=sms)), \
+                                (b, s, bands, w, sms)
+
+    @pytest.mark.parametrize("b,s,bands,w", [(2, 600, 128, 5000), (2, 2500, 1, 4000)])
+    def test_owners_beyond_one_window(self, cuda, b, s, bands, w):
+        """Elements whose owners the block lists in more than one window of
+        its list's capacity; each band's segments spread over all windows."""
+        plan = winding.banded_plan(b, s, bands, w)
+        assert plan == banded_launch_plan(b, s, bands, w, sms=plan_sms(cuda))
+        assert -(-s // plan[4]) > 1
+        rng = np.random.default_rng(s)
+        segs = cjk.make_batch(b, s, seed=s)
+        owners = rng.integers(-1, bands + 1, (b, s)).astype(np.int32)
+        min_x = rng.integers(-w // 2, 4, (bands, b)).astype(np.int32)
+        max_y = rng.integers(30, 130, (bands, b)).astype(np.int32)
+        args = [T(a).to(cuda) for a in (segs, owners, min_x, max_y)]
+        before = winding.banded_launches
+        got = winding.winding_banded_batch(*args, 0.05, width=w, sample_offset=(0.25, -0.5))
+        assert winding.banded_launches == before + 1
+        want = winding_ref.winding_banded_batch(*args, 0.05, width=w,
+                                                sample_offset=(0.25, -0.5))
+        assert torch.equal(got, want) and bool((got != 0).any())
+
+    def test_strips_are_the_per_glyph_winding(self, cuda):
+        """The first 400 bucket glyphs at 64 and 32 px: the strips equal
+        ``winding()`` per glyph, and ``winding()``'s plan is its parent's
+        (``TestPlanOnCard`` in ``test_torch_winding.py`` holds the rest)."""
+        for case in banded.cases(400):
+            rec = banded.run_case(case, cuda)
+            assert rec["differ"] == 0 and rec["ink"] > 0
+            n = case.glyphs
+            assert winding.plan(n, case.size, case.size) == wt.launch_plan(
+                n, case.size, case.size, sms=plan_sms(cuda))
+
+
+def plan_sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count

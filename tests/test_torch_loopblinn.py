@@ -44,6 +44,16 @@ def dejavu():
 
 
 @pytest.fixture
+def one_torch_thread():
+    """Torch on one thread: with one per core, parallel test workers spin
+    against each other (``tests/test_torch_sharding.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -392,26 +402,11 @@ def slivers(rng, b=4, m=300, h=80, w=72, scale=f32(0.0625), offset=(0.0, 0.0)):
 
 
 def tile_keep(tris, classes, min_x, max_y, scale, *, height, width, offset=(0.0, 0.0)):
-    """The kernel's cull (``csrc/loopblinn.cu``), with the plain version's
-    edge functions: whether each triangle is kept for each 16 x 16 tile,
-    bool ``[B, M, tiles_y, tiles_x]``. A triangle is dropped when it cannot
-    draw, or when for one edge ``e*sgn < 0`` at all four corners of the
-    tile's sample rectangle."""
-    px, py = winding_ref.sample_coords(min_x, max_y, scale, height=height, width=width,
-                                       sample_offset=offset)
-    c0, r0 = torch.arange(0, width, 16), torch.arange(0, height, 16)
-    c1, r1 = (c0 + 16).clamp(max=width) - 1, (r0 + 16).clamp(max=height) - 1
-    tri = tris[:, :, None, None]  # [B, M, 1, 1, 3, 4]
-    negative = []  # per corner, per edge: e*sgn < 0, [B, M, tiles_y, tiles_x]
-    for cx, cy in ((c0, r0), (c1, r0), (c0, r1), (c1, r1)):
-        *e, area = loopblinn_ref.edges(tri, px[:, None, None, cx], py[:, None, cy, None])
-        sgn = loopblinn_ref.sign(area)
-        negative.append([ek * sgn < 0 for ek in e])
-    misses = torch.zeros_like(negative[0][0])
-    for k in range(3):
-        misses |= negative[0][k] & negative[1][k] & negative[2][k] & negative[3][k]
-    live = (classes >= 0) & (classes <= 2)
-    return live[..., None, None] & ((area > 0) | (area < 0)) & ~misses
+    """The kernel's cull (``csrc/loopblinn.cu``) for each 16 x 16 tile, with
+    the plain version's edge functions: bool ``[B, M, tiles_y, tiles_x]``
+    (``rect_keep``)."""
+    return rect_keep(tris, classes, min_x, max_y, scale, height=height, width=width, rows=16,
+                     cols=16, offset=offset)
 
 
 def tile_inside(tris, min_x, max_y, scale, *, height, width, offset=(0.0, 0.0)):
@@ -459,6 +454,224 @@ class TestCull:
         batch = tuple(a[::8] for a in config3[:4]) + (config3[4],)
         keep, needed = self.assert_conservative(batch, 128, 128)
         assert (int(keep.sum()), int(needed.sum())) == (1817, 881)
+
+
+def rect_corners(min_x, max_y, scale, *, height, width, rows, cols, row0=0, offset=(0.0, 0.0)):
+    """The sample rectangles of the ``rows x cols`` blocks of pixels that
+    tile rows ``[row0, height)``: the px of each block's first and last
+    column and the py of its first and last row, ``[B, n]`` each, as the
+    kernel computes them (``pixel_x``, ``pixel_y``)."""
+    px, py = winding_ref.sample_coords(min_x, max_y, scale, height=height, width=width,
+                                       sample_offset=offset)
+    c0, r0 = torch.arange(0, width, cols), torch.arange(row0, height, rows)
+    c1, r1 = (c0 + cols).clamp(max=width) - 1, (r0 + rows).clamp(max=height) - 1
+    return px[:, c0], px[:, c1], py[:, r0], py[:, r1]
+
+
+def corner_tests(tris, min_x, max_y, scale, *, height, width, rows, cols, offset=(0.0, 0.0)):
+    """Per triangle and block of pixels, per edge, whether ``e*sgn < 0`` and
+    whether ``e*sgn >= 0`` at each of the four corners of the block's
+    sample rectangle: two bool ``[4, 3, B, M, blocks_y, blocks_x]``."""
+    x0, x1, y0, y1 = rect_corners(min_x, max_y, scale, height=height, width=width,
+                                  rows=rows, cols=cols, offset=offset)
+    tri = tris[:, :, None, None]  # [B, M, 1, 1, 3, 4]
+    below, above = [], []
+    for xs, ys in ((x0, y0), (x1, y0), (x0, y1), (x1, y1)):
+        *e, area = loopblinn_ref.edges(tri, xs[:, None, None, :], ys[:, None, :, None])
+        sgn = loopblinn_ref.sign(area)
+        below.append(torch.stack([ek * sgn < 0 for ek in e]))
+        above.append(torch.stack([ek * sgn >= 0 for ek in e]))
+    return torch.stack(below), torch.stack(above), area
+
+
+def rect_keep(tris, classes, min_x, max_y, scale, *, height, width, rows, cols,
+              offset=(0.0, 0.0)):
+    """The kernel's cull for blocks of ``rows x cols`` pixels: a band of the
+    plan's rows across the width (``cols = width``), or a warp's 16 x 16
+    tile. A triangle is kept unless it cannot draw, or for one edge ``e*sgn
+    < 0`` at all four corners. bool ``[B, M, blocks_y, blocks_x]``."""
+    below, _, area = corner_tests(tris, min_x, max_y, scale, height=height, width=width,
+                                  rows=rows, cols=cols, offset=offset)
+    misses = below.all(dim=0).any(dim=0)
+    live = (classes >= 0) & (classes <= 2)
+    return live[..., None, None] & ((area > 0) | (area < 0)) & ~misses
+
+
+def tile_covered(tris, classes, min_x, max_y, scale, *, height, width, rows, cols,
+                 offset=(0.0, 0.0)):
+    """The kernel's covered tile: a live class-2 triangle with nonzero area
+    whose three edges have ``e*sgn >= 0`` at all four corners of the ``rows
+    x cols`` warp tile's sample rectangle. bool ``[B, M, tiles_y,
+    tiles_x]``."""
+    _, above, area = corner_tests(tris, min_x, max_y, scale, height=height, width=width,
+                                  rows=rows, cols=cols, offset=offset)
+    solid = (classes == loopblinn_ref.CLASS_SOLID)[..., None, None]
+    return solid & ((area > 0) | (area < 0)) & above.all(dim=0).all(dim=0)
+
+
+def needed_blocks(tris, min_x, max_y, scale, *, height, width, rows, cols, offset=(0.0, 0.0)):
+    """The (triangle, block) pairs with a pixel inside the triangle, from
+    ``loopblinn_ref.inside_pairs``: bool ``[B, M, blocks_y, blocks_x]``."""
+    b, m = tris.shape[:2]
+    need = torch.zeros((b, m, -(-height // rows), -(-width // cols)), dtype=torch.bool)
+    for (bi, mi, yi, xi), *_ in loopblinn_ref.inside_pairs(
+            tris, min_x, max_y, scale, height=height, width=width, sample_offset=offset):
+        need[bi, mi, yi // rows, xi // cols] = True
+    return need
+
+
+# -- the launch plan: loopblinn.cu's make_plan, transcribed -------------------
+
+LB_TILE, LB_WARP_ROWS, LB_CHUNK, LB_MAX_TILES, LB_MAX_COLS = 16, 8, 256, 32, 256
+LB_FILL_BLOCKS_PER_SM = 2
+H100_SMS = 132
+
+
+def lb_plan(b, m, h, w, sms=H100_SMS):
+    """(rows a band, row bands, columns a band, column bands, triangles a
+    chunk, chunks) of the launch ``loopblinn()`` makes: up to 256 columns a
+    block in whole 16-column tiles, and whole 8-row warp-tile rows up to 32
+    warp tiles a block, fewer where the batch would give fewer than two
+    blocks an SM. The card holds it to the C
+    (``TestKernelOnCard.test_plan_matches_transcription``)."""
+    col_bands = -(-w // LB_MAX_COLS)
+    cols = -(-(-(-w // col_bands)) // LB_TILE) * LB_TILE
+    tiles_x, tiles_y = cols // LB_TILE, -(-h // LB_WARP_ROWS)
+    trows = min(max(LB_MAX_TILES // tiles_x, 1), tiles_y)
+    units, fill = b * col_bands, LB_FILL_BLOCKS_PER_SM * sms
+    if units * -(-tiles_y // trows) < fill:
+        trows = min(trows, max(-(-tiles_y // -(-fill // units)), 1))
+    trows = -(-tiles_y // -(-tiles_y // trows))
+    rows = min(trows * LB_WARP_ROWS, h)
+    return (rows, -(-h // rows), min(cols, w), -(-w // cols), LB_CHUNK,
+            max(-(-m // LB_CHUNK), 1))
+
+
+# (glyphs, triangles, height, width, plan): config 3's atlas, a shard of it
+# (24 of its 96 padded glyphs), the CLI's one glyph, the CJK meshes beyond
+# one chunk, a raster under one warp-tile row, wide rows in column bands, a
+# narrow raster, and a batch large enough for whole 32-tile blocks
+LB_PLANS = [
+    (94, 126, 128, 128, (32, 4, 128, 1, 256, 1)),
+    (24, 126, 128, 128, (16, 8, 128, 1, 256, 1)),
+    (1, 80, 150, 110, (8, 19, 110, 1, 256, 1)),
+    (32, 446, 64, 64, (8, 8, 64, 1, 256, 2)),
+    (3, 4, 3, 12, (3, 1, 12, 1, 256, 1)),
+    (300, 20, 80, 1000, (16, 5, 256, 4, 256, 1)),
+    (300, 300, 80, 72, (40, 2, 72, 1, 256, 2)),
+    (1000, 1, 64, 16, (64, 1, 16, 1, 256, 1)),
+]
+
+
+class TestLaunchPlan:
+    @pytest.mark.parametrize("b,m,h,w,plan", LB_PLANS)
+    def test_cases_take_their_plan(self, b, m, h, w, plan):
+        assert lb_plan(b, m, h, w) == plan
+
+    def test_blocks_cover_the_raster(self):
+        """Bands of whole warp-tile rows and of whole tiles, each within the
+        kernel's tables, that cover the raster."""
+        for b in (1, 5, 94, 1000):
+            for h in (1, 3, 4, 15, 16, 17, 80, 128, 300, 2049):
+                for w in (1, 7, 16, 33, 72, 130, 256, 257, 512, 4000):
+                    rows, row_bands, cols, col_bands, _, _ = lb_plan(b, 1, h, w)
+                    assert (rows % LB_WARP_ROWS == 0 or rows == h) and 1 <= rows <= h
+                    assert (cols % LB_TILE == 0 or cols == w) and 1 <= cols <= LB_MAX_COLS
+                    assert (row_bands - 1) * rows < h <= row_bands * rows
+                    assert (col_bands - 1) * cols < w <= col_bands * cols
+                    warp_tiles = -(-rows // LB_WARP_ROWS) * -(-cols // LB_TILE)
+                    assert rows <= LB_MAX_TILES * LB_WARP_ROWS
+                    assert warp_tiles <= max(LB_MAX_TILES, -(-cols // LB_TILE))
+
+    def test_small_batches_take_more_bands(self):
+        """One glyph is cut into one-warp-tile-row bands, and a card with
+        fewer SMs cuts a batch less."""
+        assert lb_plan(1, 80, 128, 128)[:2] == (8, 16)
+        assert lb_plan(94, 126, 128, 128, sms=1)[0] == 32
+
+
+class TestBlockCull:
+    """The band cull of the set-up and each warp's tile cull never drop a
+    (triangle, block) pair with a pixel inside the triangle, as
+    ``loopblinn_ref.inside_pairs`` finds them; and the covered tile is
+    ink at every pixel."""
+
+    BLOCKS = [(32, None), (8, None), (8, 16)]  # (rows, cols): blocks, and warp tiles
+
+    def assert_conservative(self, batch, h, w, offset=(0.0, 0.0)):
+        args = tensors(*batch)
+        kept = {}
+        for rows, cols in self.BLOCKS:
+            cols = cols or w
+            keep = rect_keep(*args, height=h, width=w, rows=rows, cols=cols, offset=offset)
+            need = needed_blocks(args[0], *args[2:], height=h, width=w, rows=rows, cols=cols,
+                                 offset=offset)
+            live = ((args[1] >= 0) & (args[1] <= 2))[..., None, None]
+            assert not (need & live & ~keep).any(), (rows, cols)
+            kept[rows, cols] = (int(keep.sum()), int((need & live).sum()))
+        return kept
+
+    def assert_covered_tiles_are_ink(self, batch, h, w, offset=(0.0, 0.0)):
+        """Every tile the test marks is ink at every pixel in the plain
+        version, and inside the marking triangle at each."""
+        args = tensors(*batch)
+        th, tw = LB_WARP_ROWS, LB_TILE
+        covered = tile_covered(*args, height=h, width=w, rows=th, cols=tw, offset=offset)
+        out = loopblinn_ref.loopblinn_batch(*args, height=h, width=w, sample_offset=offset)
+        px, py = winding_ref.sample_coords(*args[2:], height=h, width=w, sample_offset=offset)
+        for bi, mi, ty, tx in covered.nonzero().tolist():
+            rs, cs = slice(th * ty, th * ty + th), slice(tw * tx, tw * tx + tw)
+            assert out[bi, rs, cs].all(), (bi, mi, ty, tx)
+            e = loopblinn_ref.edges(args[0][bi, mi], px[bi, cs][None, :], py[bi, rs][:, None])
+            assert loopblinn_ref.inside_mask(*e).all()
+        return int(covered.sum())
+
+    @pytest.mark.parametrize("seed", range(4))
+    @pytest.mark.parametrize("offset", [(0.0, 0.0), (1 / 3, 1 / 3)])
+    def test_slivers(self, seed, offset, one_torch_thread):
+        scale = [f32(1), f32(0.0625), f32(0.4), f32(3)][seed]
+        batch = slivers(np.random.default_rng(seed), scale=scale, offset=offset)
+        kept = self.assert_conservative(batch, 80, 72, offset)
+        assert kept[8, 16][1] > 1000 and kept[8, 16][0] < 2 * kept[8, 16][1]
+        self.assert_covered_tiles_are_ink(batch, 80, 72, offset)
+
+    def test_ties(self, one_torch_thread):
+        self.assert_conservative(tie_batch(), TIE_H, TIE_W)
+        # the solid triangles' tile holds pixels outside them: not covered
+        assert self.assert_covered_tiles_are_ink(tie_batch(), TIE_H, TIE_W) == 0
+
+    def test_config3_glyphs(self, config3, one_torch_thread):
+        """Every 8th glyph of config 3's atlas, 306 live triangles: its
+        32-row blocks keep 848 of their 1,224 (triangle, block) pairs,
+        8-row blocks would keep 2,923 of 4,896, and the 16 x 8 warp tiles
+        2,646 of 39,168, 1,292 of them with a pixel inside. At 128 px no tile
+        lies inside one solid triangle: the strokes are thinner than a
+        tile."""
+        batch = tuple(a[::8] for a in config3[:4]) + (config3[4],)
+        kept = self.assert_conservative(batch, 128, 128)
+        assert (kept[32, 128][0], kept[8, 128][0], kept[8, 16]) == (848, 2923, (2646, 1292))
+        assert self.assert_covered_tiles_are_ink(batch, 128, 128) == 0
+
+    def test_covered_tiles_at_512_px(self, dejavu, one_torch_thread):
+        """'I' and '.' at 512 px: tiles inside one solid triangle, each ink."""
+        batch = mesh_batch(dejavu, "I.", 512, 512)
+        assert self.assert_covered_tiles_are_ink(batch, 512, 512) > 0
+
+    def test_covered_tile_of_a_large_triangle(self, one_torch_thread):
+        """A solid triangle over the whole raster covers every tile, and one
+        that misses a tile's corner by a float32 step covers none there."""
+        scale = f32(0.5)
+        big = [(-1000.0, -1000.0, 0, 0), (1000.0, -1000.0, 0, 0), (0.0, 1000.0, 0, 0)]
+        tris = np.array([[big]], f32)
+        batch = (tris, np.array([[2]], np.int32), np.zeros(1, np.int32),
+                 np.full(1, 40, np.int32), scale)
+        assert self.assert_covered_tiles_are_ink(batch, 48, 48) == 18
+        # an edge through the sample column of the first tile's last pixel
+        x = np.nextafter(f32(15 / scale), f32(np.inf))
+        tris2 = np.array([[[(x, -1000.0, 0, 0), (1000.0, -1000.0, 0, 0), (x, 1000.0, 0, 0)]]],
+                         f32)
+        batch2 = (tris2, *batch[1:])
+        assert self.assert_covered_tiles_are_ink(batch2, 48, 48) == 12
 
 
 # --- on the card -------------------------------------------------------------
@@ -573,3 +786,54 @@ class TestKernelOnCard:
         with pytest.raises(RuntimeError, match="loopblinn kernel launch failed"):
             loopblinn.loopblinn_batch(tris, cls, anchors, anchors, 1.0, height=8, width=8)
         assert loopblinn.launches == before
+
+    def test_plan_matches_transcription(self, cuda):
+        card = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert loopblinn.plan(8, 64, 64, 64) == loopblinn.plan(8, 64, 64, 64, sms=card)
+        for sms in (card, 1, 66, H100_SMS):
+            for b in (1, 3, 24, 94, 1000):
+                for m in (0, 1, 126, 256, 257, 446):
+                    for h in (1, 12, 16, 17, 64, 80, 128, 300):
+                        for w in (1, 7, 33, 72, 128, 130, 1000):
+                            assert (loopblinn.plan(b, m, h, w, sms=sms)
+                                    == lb_plan(b, m, h, w, sms=sms)), (b, m, h, w, sms)
+
+    @pytest.mark.parametrize("b,m,h,w,want", LB_PLANS)
+    def test_every_plan(self, cuda, dejavu, b, m, h, w, want):
+        """Each labelled plan on glyph meshes padded to ``m`` triangles (the
+        CJK meshes where ``m`` is 446) and tiled to ``b`` glyphs, with rows
+        through the glyphs' middle, at two sample offsets."""
+        if m == 446:
+            logging.getLogger("fontrx_torch.geometry").setLevel(logging.ERROR)
+            batch = mesh_batch(Font.open(CJK), CJK_CHARS, 64, 64)
+        else:
+            batch = mesh_batch(dejavu, "AQg@&%Wb"[: max(1, min(8, b))], 64, 64)
+        tris, classes = batch[:2]
+        m_have = tris.shape[1]
+        if m_have > m:  # keep each mesh's first m triangles
+            tris, classes = tris[:, :m], classes[:, :m]
+        elif m_have < m:
+            tris = np.concatenate([tris, np.zeros((len(tris), m - m_have, 3, 4), f32)], 1)
+            classes = np.concatenate([classes, np.full((len(tris), m - m_have), 3, np.int32)], 1)
+        reps = -(-b // len(tris))
+        tris, classes, min_x, max_y = (np.concatenate([a] * reps)[:b] for a in
+                                       (tris, classes, batch[2], batch[3]))
+        args = (tris, classes, min_x - w // 2 + 32, max_y - 32 + h // 2, batch[4])
+        assert loopblinn.plan(b, m, h, w) == lb_plan(b, m, h, w, sms=plan_sms(cuda))
+        if plan_sms(cuda) == H100_SMS:
+            assert loopblinn.plan(b, m, h, w) == want
+        for offset in [(0.0, 0.0), (0.25, -1 / 3)]:
+            out = assert_card_equals_ref(args, h, w, cuda, offset)
+            assert out.any() or m < 20  # a few triangles may miss the raster
+
+    @pytest.mark.parametrize("h,w", [(16, 130), (33, 72), (7, 1), (130, 33)])
+    def test_ragged_widths(self, cuda, dejavu, h, w):
+        """Rows whose lanes store 8, 4 or 1 bytes, and tiles cut by the
+        raster's edges."""
+        batch = mesh_batch(dejavu, "AQg", 64, 64)
+        args = (*batch[:2], batch[2] - w // 2 + 32, batch[3] - 32 + h // 2, batch[4])
+        assert_card_equals_ref(args, h, w, cuda)
+
+
+def plan_sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
