@@ -1,7 +1,8 @@
 """Drive fontrx_torch's glyph fill, window-packed atlas, tile coverage, SDF
 atlas, Loop-Blinn atlas, direct page, interactive MSAA and sharded paths, its
 roofline probe, its row-banded strip atlas, the interactive session's edit
-path and the command line once on one CUDA card, and check them.
+path, the command line and the COLR v0 colour path once on one CUDA card,
+and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -131,6 +132,19 @@ just after:
   the font open, layout, render call, copy to host and QOI encode (host
   clock, synchronised), the kernels from CUDA-graph replays, and config 1 in
   a new ``python -m fontrx_torch`` process (the kernels already built).
+- **colour path**, last (COLR v0 glyphs: the coverage kernel over every
+  (glyph, layer) row, the src-over fold, the page composite): ``-m color``
+  on ``tests/data/colrtest.ttf``'s "CAB\\nBCA" at 64 and 256 px in palettes
+  0, 1 and dark, each once and 3 times warm (one coverage launch a call);
+  config 5's session in ``mode="color"`` (its text, font and 30 events,
+  then a zoom out that puts all 1,080 instances on the page) and 20 rows
+  of colrtest's colour glyphs on 1920 x 1080 zoomed out until their tiles
+  overlap (one coverage launch for each change of zoom); no plain version
+  may run. Each file equals ``--backend cpu``'s bytes, the tiles of A, B
+  and C at 64 px gate 10's NumPy oracle, each session's tiles at each zoom
+  the plain version's, and each frame the plain serial composite of the
+  plain tiles; the tile pass, the kernel and the composite (main path and
+  plain) are timed at each session's first and last view.
 
 It then checks every result: each kernel against its plain PyTorch version
 on every pixel (the SDF as int32 bit patterns; the Loop-Blinn atlas also
@@ -187,14 +201,14 @@ import torch
 from fontrx_torch.bench import banded as banded_probe
 from fontrx_torch.bench import roofline as roofline_probe
 from fontrx_torch.bench.cjk import UPEM, make_batch
-from fontrx_torch.bench.timing import cuda_ms, graph_ms, host_ms
+from fontrx_torch.bench.timing import cuda_ms, graph_ms, host_ms, synced_ms
 from fontrx_torch.bound import (
     SDF_CULL_BOX, bound_ms, loopblinn_bytes, loopblinn_work, page_bytes, page_msaa_bytes,
     page_msaa_work, page_work, sdf_kept_pairs, sdf_work, winding_work, window_bytes, window_work)
 from fontrx_torch.cli import main as cli
 from fontrx_torch.convert import grid_anchors, packed_to_device, to_device, triangles_to_device
 from fontrx_torch.device import probe, require_cuda
-from fontrx_torch.engine import sharding
+from fontrx_torch.engine import colorglyphs, sharding
 from fontrx_torch.engine.atlas import pack_charset
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.entry import dryrun_multichip, dryrun_multihost, entry
@@ -323,7 +337,29 @@ CLI_SCRIPT = ("frame", "scroll 0.5 0.1 0.1", "frame", "key m", "frame", "key m",
 PLAIN_FUNCTIONS = ((winding_ref, "winding_batch"), (coverage_ref, "coverage_batch"),
                    (sdf_ref, "sdf_batch"), (sdf_ref, "sdf_from_winding"),
                    (loopblinn_ref, "loopblinn_batch"), (page_ref, "direct_page"),
-                   (page_ref, "direct_page_msaa"), (winding_ref, "winding_banded_batch"))
+                   (page_ref, "direct_page_msaa"), (winding_ref, "winding_banded_batch"),
+                   (colorglyphs, "serial_fold"))
+
+# the colour phase (COLR v0 glyphs, engine/colorglyphs.py), after the command
+# line: tests/data/colrtest.ttf's A, B and C have two layers each (B's second
+# at 50% alpha, C's second in the foreground colour). The command line on
+# "CAB\nBCA" at 64 and 256 px in palettes 0, 1 and dark, then two 1920 x 1080
+# sessions in colour mode: config 5's (its text, font and 30 events, then a
+# zoom out that puts all 1,080 instances on the page) and 20 rows of the colour
+# glyphs (1,080 instances, two layers each), zoomed out until their tiles
+# overlap, then two pans
+COLRTEST = ROOT / "tests" / "data" / "colrtest.ttf"
+COLOR_TEXT = "CAB\nBCA"
+COLOR_CLI = tuple((f"colr{size}_{pal}", ["-f", str(COLRTEST), "-t", COLOR_TEXT, "-s", str(size),
+                                         "-m", "color", "--palette", pal])
+                  for size in (64, 256) for pal in ("0", "1", "dark"))
+COLOR_ROWS_TEXT = "\n".join("ABCCABBCA" * 6 for _ in range(20))
+COLOR_SESSIONS = (
+    ("config5", DEJAVU, CONFIG5_TEXT, CONFIG5_EVENTS + (("scroll", -22.0, (-1.0, 1.0)),)),
+    ("colr_rows", COLRTEST, COLOR_ROWS_TEXT,
+     (("scroll", -24.0, (-1.0, 1.0)), ("drag", 0.01, 0.005), ("drag", -0.02, 0.0))),
+)
+COLOR_WARM = 3  # warm calls of a CLI case, after its first
 
 # the sharded phase: 4-shard meshes (glyphs, 2 x 2 glyphs x rows, row bands)
 # laid over the visible cards round robin, the dry runs' mesh and processes
@@ -1465,6 +1501,173 @@ def cli_phase(dev, tmp):
     return record, launches
 
 
+def gate10_tiles(font, chars, size: int) -> np.ndarray:
+    """Gate 10's NumPy recipe (``benchmarks/full_gate.py:514-570``) for the
+    colour tiles of ``chars`` at ``size`` px in palette 0: per layer, the
+    oracle's 2 x 2 coverage on the glyph's tile, ``a = cov * f32(a / 255)``,
+    ``src = (f32(c) / f32(255) * a, a)``, folded ``dst * (1 - a) + src``."""
+    out = np.zeros((len(chars), size, size, 4), np.float32)
+    c255 = np.float32(255.0)
+    for i, ch in enumerate(chars):
+        tree = font.color_paint_tree(font.glyph_index(ch))
+        layers = [(font.load_glyph_safe(node[1]), node[2][1]) for node in tree[1]]
+        boxes = [g.box for g, _ in layers]
+        union = (min(b.x_min for b in boxes), min(b.y_min for b in boxes),
+                 max(b.x_max for b in boxes), max(b.y_max for b in boxes))
+        grid = RasterGrid.fixed_tile(union, size, font.info.units_per_em, size)
+        for g, (r8, g8, b8, a8) in layers:
+            a = coverage_oracle(glyph_segments(g), grid, 2) * np.float32(a8 / 255.0)
+            src = np.stack([np.float32(r8) / c255 * a, np.float32(g8) / c255 * a,
+                            np.float32(b8) / c255 * a, a], axis=-1)
+            out[i] = out[i] * (np.float32(1.0) - a[..., None]) + src
+    return out
+
+
+def color_phase(dev, tmp):
+    """The colour path as a user calls it, with the launch counts set to 0
+    just before and read just after, and no plain version may run: each
+    case of ``COLOR_CLI`` once and ``COLOR_WARM`` times warm (one coverage
+    launch a call), then the sessions of ``COLOR_SESSIONS`` (one coverage
+    launch a zoom). Then each CLI file is held to ``--backend cpu``'s bytes,
+    the tiles of A, B and C at 64 px to gate 10's oracle, each session's
+    tiles at each zoom to the plain version's, and each frame to the plain
+    composite of the plain tiles; the tile pass (coverage kernel and fold),
+    the kernel alone and the composite are timed. Returns the record and the
+    coverage kernel's launches."""
+    sessions = {}
+    cli_ms = {}
+    reset_counts()
+    with counting_plain() as plain:
+        for name, argv in COLOR_CLI:
+            before = coverage.launches
+            calls = []
+            for _ in range(1 + COLOR_WARM):
+                t0 = time.perf_counter()
+                check(cli.main([*argv, "-o", str(tmp / f"{name}.qoi")]) == 0,
+                      f"CLI {name} failed")
+                calls.append((time.perf_counter() - t0) * 1e3)
+            check(coverage.launches - before == 1 + COLOR_WARM,
+                  f"CLI {name}: {coverage.launches - before} coverage launches in "
+                  f"{1 + COLOR_WARM} calls")
+            cli_ms[name] = dict(first_ms=calls[0], warm_ms=statistics.median(calls[1:]))
+        for name, font_path, text, events in COLOR_SESSIONS:
+            before = coverage.launches
+            sess = InteractiveSession(Font.open(font_path), text, *CONFIG5_SIZE, dev,
+                                      mode="color")
+            frames, views = run_events(sess, events)
+            # the tiles raster again where a frame's zoom is not the last one's
+            zooms = 1 + sum(a.scale[0] != b.scale[0] for a, b in zip(views, views[1:]))
+            check(coverage.launches - before == zooms,
+                  f"{name} colour session: {coverage.launches - before} coverage launches, "
+                  f"not one for each of its {zooms} changes of zoom")
+            sessions[name] = (sess, frames, views)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(plain[0] == 0, f"the colour path ran a plain version {plain[0]} times on the card")
+    check(launches == {**{k: 0 for k in launches}, "coverage": launches["coverage"]},
+          f"the colour path launched {launches}")
+    print(f"colour path: {launches['coverage']} coverage kernel launches, nothing else, "
+          "0 plain-version runs")
+
+    record = {"cli": {}, "sessions": {}}
+    for name, argv in COLOR_CLI:
+        data = (tmp / f"{name}.qoi").read_bytes()
+        check(cli.main([*argv, "--backend", "cpu", "-o", str(tmp / f"{name}_cpu.qoi")]) == 0,
+              f"CLI {name} --backend cpu failed")
+        check(data == (tmp / f"{name}_cpu.qoi").read_bytes(),
+              f"CLI {name}: its QOI differs from --backend cpu's")
+        got = qoi.decode(data)
+        misread = int((qoi.decode(data, strict=True) != got).sum())
+        stages = CliStages()
+        stages.rows.append({})
+        with stages.installed():
+            cli.main([*argv, "-o", str(tmp / f"{name}_timed.qoi")])
+        record["cli"][name] = dict(**cli_ms[name], shape=list(got.shape),
+                                   spec_decoder_misreads=misread,
+                                   kernel_ms=cli_kernel_ms(stages.last["render"]))
+        k = record["cli"][name]["kernel_ms"]
+        print(f"CLI {name}: {got.shape[1]} x {got.shape[0]}, QOI bytes equal to --backend "
+              f"cpu's; first call {cli_ms[name]['first_ms']:.2f} ms, warm median "
+              f"{cli_ms[name]['warm_ms']:.2f} ms; coverage kernel {k['ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}); a standard QOI decoder misreads "
+              f"{misread} values")
+
+    cfont = Font.open(COLRTEST)
+    tiles, _ = colorglyphs.color_glyph_tiles(cfont, [cfont.glyph_index(c) for c in "ABC"], 64,
+                                             RasterEngine(dev))
+    want = gate10_tiles(cfont, "ABC", 64)
+    mismatch = int((tiles.cpu().numpy() != want).sum())
+    check(mismatch == 0, f"colour tiles at 64 px: {mismatch} values differ from gate 10's oracle")
+    record["gate10_tiles"] = dict(checked=int(want.size), mismatch=mismatch)
+    print(f"colour tiles of A, B and C at 64 px equal gate 10's NumPy oracle: 0 of {want.size} "
+          "values differ")
+
+    max_err = 0.0
+    for name, (sess, frames, views) in sessions.items():
+        renderer = sess.renderer
+        h, w = renderer.height, renderer.width
+        plain_tiles, zoom_ms = {}, {}
+        for n, (frame, view) in enumerate(zip(frames, views)):
+            key = view.scale[0]
+            if key not in plain_tiles:
+                plain_tiles[key] = renderer.color_tiles(view, plain=True)
+                tiles, grids, ink = renderer.color_tiles(view)
+                max_err = max(max_err, float((tiles - plain_tiles[key][0]).abs().max()))
+                check(torch.equal(tiles, plain_tiles[key][0]),
+                      f"{name} colour session, frame {n}: its tiles differ from the plain "
+                      "version's")
+            tiles, grids, _ = plain_tiles[key]
+            want = colorglyphs.composite_color_page(tiles, grids, *renderer.color_pen(view),
+                                                    page_h=h, page_w=w, plain=True)
+            check(np.array_equal(frame, want),
+                  f"{name} colour session, frame {n}: {int((frame != want).sum())} values "
+                  "differ from the plain version's")
+        # timings at the first view and at the last (all instances on the page)
+        timed = {}
+        for which, view in (("first", views[0]), ("last", views[-1])):
+            tiles, grids, ink = renderer.color_tiles(view)
+            slots, pen = renderer.color_pen(view)
+            px_per_unit = view.scale[0] * (w / 2.0)
+            gids = [int(g) for g in renderer.layout.slot_gids]
+            engine = RasterEngine(dev)
+            stages = CliStages()
+            stages.rows.append({})
+            with patched(RasterEngine, "coverage_batch", stages.wrap("render")):
+                colorglyphs.color_glyph_tiles(renderer.font, gids, px_per_unit *
+                                              renderer.font.info.units_per_em, engine,
+                                              tile=tiles.shape[1])
+            x0, y0 = colorglyphs.tile_origins(grids, slots, pen, tiles.shape[1], h, w)
+            box = ink[slots]
+            left, top = x0 - tiles.shape[1], y0 - tiles.shape[1]
+            timed[which] = dict(
+                tile=int(tiles.shape[1]), tiles=len(gids),
+                on_page=int(((left + box[:, 3] > 0) & (left + box[:, 2] < w)
+                             & (top + box[:, 1] > 0) & (top + box[:, 0] < h)).sum()),
+                tile_pass_ms=synced_ms(lambda: colorglyphs.color_glyph_tiles(
+                    renderer.font, gids, px_per_unit * renderer.font.info.units_per_em, engine,
+                    tile=tiles.shape[1])),
+                kernel_ms=cli_kernel_ms(stages.last["render"]),
+                composite_ms=synced_ms(lambda: colorglyphs.composite_color_page(
+                    tiles, grids, slots, pen, page_h=h, page_w=w, ink=ink)),
+                composite_plain_ms=synced_ms(lambda: colorglyphs.composite_color_page(
+                    tiles, grids, slots, pen, page_h=h, page_w=w, plain=True), reps=1))
+        stats = sess.stats()
+        record["sessions"][name] = dict(frames=len(frames),
+                                        instances=len(renderer.layout.instances),
+                                        zooms=len(plain_tiles), stats=stats, **timed)
+        print(f"{name} colour session: {len(frames)} frames of {w} x {h}, "
+              f"{len(renderer.layout.instances)} instances, {len(plain_tiles)} zooms, every "
+              f"frame and tile pass equal to the plain version's; frame {stats['mean_ms']:.2f} "
+              f"ms (p99 {stats['p99_ms']:.2f}); "
+              + "; ".join(f"{which} view: {t['tiles']} tiles of {t['tile']} px, tile pass "
+                          f"{t['tile_pass_ms']:.3f} ms (coverage kernel {t['kernel_ms']['ms']:.4f} "
+                          f"ms, bound {t['kernel_ms']['bound_ms']:.5f} ms "
+                          f"{t['kernel_ms']['bound_by']}), composite of {t['on_page']} inked "
+                          f"instances {t['composite_ms']:.3f} ms, plain serial fold "
+                          f"{t['composite_plain_ms']:.3f} ms" for which, t in timed.items()))
+    return record, launches["coverage"], max_err
+
+
 def main() -> None:
     dev = require_cuda()
     print("toolchain:", json.dumps(probe()))
@@ -2186,6 +2389,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         cli_record, cli_launches = cli_phase(dev, pathlib.Path(tmp))
 
+    # --- the colour path (COLR v0: K9 and the src-over composite), once -------
+    with tempfile.TemporaryDirectory() as tmp:
+        color_record, color_launches, color_err = color_phase(dev, pathlib.Path(tmp))
+    max_err["coverage"] = max(max_err["coverage"], color_err)
+
     # --- host baseline and the card ------------------------------------------
     batch, grids, _ = atlases["ascii256"]
     reps = []
@@ -2223,9 +2431,11 @@ def main() -> None:
                  sharded_launches=sharded_launches["winding"],
                  sharded={k: v for k, v in shard_record.items()
                           if k in ("cjk64_glyphs4", "cjk64_2x2", "ascii256_2x2")}),
-        entry_of("coverage", "fontrx/kernels/coverage_pallas.py:211", coverage_launches,
-                 samples=SAMPLES, sharded_launches=sharded_launches["coverage"],
-                 sharded=shard_record["cjk64_coverage_glyphs4"]),
+        entry_of("coverage", "fontrx/kernels/coverage_pallas.py:211",
+                 coverage_launches + color_launches, samples=SAMPLES,
+                 sharded_launches=sharded_launches["coverage"],
+                 sharded=shard_record["cjk64_coverage_glyphs4"], color_launches=color_launches,
+                 color=color_record),
         entry_of("sdf", "fontrx/kernels/sdf_pallas.py:180", sdf_launches,
                  also_replaces="fontrx/kernels/sdf_pallas.py:605",
                  spread_px=sdf_ref.SPREAD_PX, winding_launches=sdf_winding_launches,

@@ -48,6 +48,21 @@ def host_ms(fn, *, calls: int = 100, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def synced_ms(fn, reps: int = 7) -> float:
+    """Median host ms of ``fn()`` from a synchronised card to a synchronised
+    card, after one warm-up call: what a caller waits for, host work and
+    copies to the host included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def graph_ms(fn, *, calls: int = 20) -> float:
     """Device ms per call of ``fn``: CUDA-event timings of a CUDA graph that
     replays ``calls`` calls, so no host launch overhead is counted."""

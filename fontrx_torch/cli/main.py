@@ -13,6 +13,10 @@ modes and the kernels they launch:
 - ``triangulation``: the Loop-Blinn kernel, once, or ``winding()`` for an
   outline that crosses itself; ``-d`` draws the triangle classes on the host
   and launches nothing;
+- ``color``: COLR v0 colour glyphs (``engine.colorglyphs``): the coverage
+  kernel once over every (glyph, layer) row, the layers folded src-over into
+  premultiplied RGBA tiles, the tiles composited at the pen positions;
+  ``--palette`` picks the CPAL palette (an index, ``light`` or ``dark``);
 - ``-i``: ``InteractiveSession`` (``page()``, and ``page_msaa()`` after the
   ``m`` key).
 
@@ -21,7 +25,8 @@ modes and the kernels they launch:
 come to the host once, at the end of each mode.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-``color`` (13) and ``lcd`` (10b) modes, ``--hinting`` and ``--bitmaps`` in
+``lcd`` mode (10b), COLR v1, OT-SVG and bitmap colour glyphs in the
+``color`` mode (13b), ``--hinting`` and ``--bitmaps`` in
 the fill and gray modes (14), ``--info`` (14), ``--serve`` (14),
 ``--fallback`` (``FontStack``, 14), ``--variation`` (18), and every layout
 flag away from its default (7a; in every mode, ``-i`` included).
@@ -39,6 +44,7 @@ import torch
 from fontrx_torch.cli.config import BACKENDS, Config, ConfigError, HelpRequested, parse_args
 from fontrx_torch.convert import grid_anchors
 from fontrx_torch.device import require_cuda
+from fontrx_torch.engine.colorglyphs import color_glyph_tiles, composite_color_page
 from fontrx_torch.engine.raster import RasterEngine
 from fontrx_torch.font.font import Font
 from fontrx_torch.geometry import TriangulatedGlyph
@@ -204,7 +210,7 @@ def _render(font, text, cfg, engine) -> np.ndarray:
         return _rgb(page)
 
     if cfg.mode == "color":
-        raise NotImplementedError("-m color: colour glyphs are not ported (ROADMAP item 13)")
+        return _render_color(font, text, cfg, engine)
 
     if cfg.mode == "coverage":
         layout = layout_text(font, text)
@@ -264,6 +270,51 @@ def _render(font, text, cfg, engine) -> np.ndarray:
         return _rgb(loopblinn_fill(tg, grid, device=engine.device))
 
     raise SystemExit(f"unknown mode {cfg.mode!r}")
+
+
+def color_palette(font, selector) -> int:
+    """The CPAL palette that ``--palette`` picks: an index, or ``light`` or
+    ``dark`` (the first palette flagged for that background); an unknown
+    selector or an index out of range warns and takes palette 0, as does a
+    font without CPAL."""
+    if font.cpal is None:
+        return 0
+    try:
+        palette = (int(selector) if str(selector).lstrip("-").isdigit()
+                   else font.cpal.select(selector))
+    except ValueError:
+        log.warning("unknown palette selector %r; using 0", selector)
+        return 0
+    if not 0 <= palette < font.cpal.num_palettes:
+        log.warning("palette %d out of range (%d palettes); using 0", palette,
+                    font.cpal.num_palettes)
+        return 0
+    return palette
+
+
+def _render_color(font, text, cfg, engine) -> np.ndarray:
+    """The ``color`` mode: COLR v0 layers of every glyph of the layout (a
+    glyph without layers as one black layer of its outline), composited over
+    white; 1 em == ``size`` px, a margin of ``max(size // 8, 4)`` px, the
+    first baseline an ascent below the top margin."""
+    layout = layout_text(font, text)
+    if (font.colr is None or font.cpal is None) and not any(
+            tag in font.tables for tag in (b"sbix", b"CBDT", b"SVG ")):
+        log.warning("font has no COLR/CPAL, SVG documents, or bitmap strikes; color mode "
+                    "renders the monochrome outlines")
+    palette = color_palette(font, cfg.palette)
+    tiles, grids = color_glyph_tiles(font, [int(g) for g in layout.slot_gids], cfg.size, engine,
+                                     palette=palette, samples=max(cfg.samples, 2))
+    ppu = cfg.size / font.info.units_per_em
+    margin = max(cfg.size // 8, 4)
+    width = int(layout.width * ppu) + 2 * margin
+    height = int(layout.height * ppu) + 2 * margin
+    slots, offsets_em = layout.instance_arrays()
+    pen = np.empty((len(slots), 2), np.float64)
+    pen[:, 0] = margin + offsets_em[:, 0] * ppu
+    # em y up -> page y down
+    pen[:, 1] = margin + font.info.ascent * ppu - offsets_em[:, 1] * ppu
+    return composite_color_page(tiles, grids, slots, pen, page_h=height, page_w=width)
 
 
 def _run_interactive(font, text, cfg, engine) -> int:

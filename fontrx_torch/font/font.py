@@ -4,9 +4,12 @@ normalized glyphs.
 A copy of the ``glyf`` path of ``fontrx/font/font.py``: the table
 directory, head/maxp/hhea/hmtx, the char -> glyph map from the best cmap
 subtable (formats 4 and 12), short and long ``loca``, a lazy glyph cache,
-and compound glyphs flattened recursively with a cycle guard. WOFF, CFF,
-variations, hinting, shaping and colour are left out.
-``tests/test_torch_frontend.py`` holds it equal to the original.
+and compound glyphs flattened recursively with a cycle guard; and for
+colour the ``colr`` and ``cpal`` tables (``fontrx_torch.font.colr``) and the
+COLR v0 branch of ``color_paint_tree``. WOFF, CFF, variations, hinting,
+shaping, COLR v1, SVG documents and bitmap strikes are left out.
+``tests/test_torch_frontend.py`` and ``tests/test_torch_color.py`` hold it
+equal to the original.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from fontrx_torch.font import ttf
+from fontrx_torch.font.colr import ColrTable, CpalTable
 from fontrx_torch.font.charmap import CharGlyphMapping
 from fontrx_torch.font.glyph import Glyph, from_component, from_simple
 from fontrx_torch.font.reader import BigEndianReader, CorruptedFont, ensure_mono_increase
@@ -181,3 +185,48 @@ class Font:
             log.warning("glyph %d failed to load (%s); masking as empty",
                         index, e)
             return Glyph.empty()
+
+    @property
+    def colr(self) -> ColrTable | None:
+        """The COLR v0 layer table, or ``None`` (no table, or one that does
+        not parse). A COLR v1 table raises ``NotImplementedError`` (ROADMAP
+        item 13b)."""
+        if not hasattr(self, "_colr"):
+            self._colr = None
+            if b"COLR" in self.tables:
+                try:
+                    self._colr = ColrTable.parse(self._at(b"COLR"))
+                except ValueError as e:
+                    log.warning("COLR unusable: %s", e)
+        return self._colr
+
+    @property
+    def cpal(self) -> CpalTable | None:
+        """The CPAL palettes, or ``None`` (no table, or one that does not
+        parse)."""
+        if not hasattr(self, "_cpal"):
+            self._cpal = None
+            if b"CPAL" in self.tables:
+                try:
+                    self._cpal = CpalTable.parse(self._at(b"CPAL"))
+                except ValueError as e:
+                    log.warning("CPAL unusable: %s", e)
+        return self._cpal
+
+    def color_paint_tree(self, gid: int, palette: int = 0,
+                         foreground: tuple[int, int, int, int] = (0, 0, 0, 255)):
+        """``gid``'s palette-resolved COLR v0 render tree, ``("layers",
+        [("glyph", layer_gid, ("solid", rgba), None), ...])`` painting bottom
+        to top, or ``None`` when the font has no COLR record for it. Where
+        the original would turn to the glyph's OT-SVG document instead (a
+        font with an ``SVG `` table), this raises ``NotImplementedError``
+        (ROADMAP item 13b)."""
+        colr, cpal = self.colr, self.cpal
+        layers = colr.layers(gid) if colr is not None and cpal is not None else None
+        if layers is None:
+            if b"SVG " in self.tables:
+                raise NotImplementedError(
+                    "OT-SVG colour glyphs are not ported (ROADMAP item 13b)")
+            return None
+        return ("layers", [("glyph", lg, ("solid", cpal.color(palette, pe, foreground)), None)
+                           for lg, pe in layers])

@@ -1,11 +1,13 @@
 """Headless interactive session: zoom/pan/toggle events -> re-rendered frames.
 
-A port of the direct mode of ``fontrx/scene/interactive.py``
+A port of the direct and colour modes of ``fontrx/scene/interactive.py``
 (``EventState``, ``InteractiveSession``: lines 36-147, 219-399 and
 401-422), the analog of the original viewer's window loop: events
 accumulate between frames, and each ``frame()`` consumes them, updates the
 view and re-rasters the page through ``PageRenderer.render_direct`` (BASELINE
-config 5). Frames come back as host arrays.
+config 5), or with ``mode="color"`` through ``PageRenderer.render_color``
+(COLR v0 layers; uint8 ``[H, W, 3]`` frames, which MSAA, debug and the
+pipeline do not change). Frames come back as host arrays.
 
 - scroll -> exponential zoom about the cursor
 - drag   -> pan
@@ -23,8 +25,8 @@ kernel with 256 rows) and splices it into a copy of the cached page; a
 dirty span wholly off the page re-renders nothing.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-composite and colour modes and the ``c`` key (items 8 and 13), the
-variable-font keys ``[`` and ``]`` with ``set_axis`` (item 18), and layout
+composite mode, and the ``c`` key, whose cycle passes through it (item 8),
+the variable-font keys ``[`` and ``]`` with ``set_axis`` (item 18), and layout
 options at other than their defaults (item 7a).
 """
 
@@ -78,10 +80,10 @@ class EventState:
 
 @dataclass
 class InteractiveSession:
-    """A direct-mode session over ``text`` on a ``width x height`` page on
-    ``device`` (``"cuda"``, ``"cpu"`` or a ``torch.device``). With
-    ``pipeline`` a frame dispatches its page and returns the previous one
-    (two frames in flight)."""
+    """A session over ``text`` on a ``width x height`` page on ``device``
+    (``"cuda"``, ``"cpu"`` or a ``torch.device``), in ``mode`` ``"direct"``
+    or ``"color"``. With ``pipeline`` a direct frame dispatches its page and
+    returns the previous one (two frames in flight)."""
 
     font: Font
     text: str
@@ -103,10 +105,10 @@ class InteractiveSession:
     layout_options: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.mode != "direct":
+        if self.mode not in ("direct", "color"):
             raise NotImplementedError(
-                f"mode={self.mode!r}: only the direct mode is ported (composite and colour: "
-                "ROADMAP items 8 and 13)")
+                f"mode={self.mode!r}: the direct and colour modes are ported (composite: "
+                "ROADMAP item 8)")
         self.device = torch.device(self.device)
         # paragraph-cached layout: an edit re-lays only the paragraphs it
         # changed, equal to a whole layout_text; layout_text raises on any
@@ -178,7 +180,8 @@ class InteractiveSession:
 
     def cycle_mode(self):
         raise NotImplementedError(
-            "cycle_mode: the composite and colour modes are not ported (ROADMAP items 8 and 13)")
+            "cycle_mode: its cycle passes through the composite mode, which is not ported "
+            "(ROADMAP item 8)")
 
     def char_input(self, text: str):
         """Append typed characters and lay the text out again."""
@@ -213,7 +216,7 @@ class InteractiveSession:
 
     def frame(self) -> np.ndarray:
         """Consume the events, update the view, re-raster: the page as a
-        uint8 ``[H, W]`` host array. Events apply in the original's order:
+        uint8 ``[H, W]`` host array (``[H, W, 3]`` in colour mode). Events apply in the original's order:
         resize, the toggles, zoom, drag."""
         t0 = time.perf_counter()
         ev = self.events
@@ -239,7 +242,12 @@ class InteractiveSession:
             ev.drag_delta = (0.0, 0.0)
             ev.dragging = False
 
-        if self.pipeline:
+        if self.mode == "color":
+            # COLR/CPAL layers over white, uint8 [H, W, 3]; MSAA and debug
+            # do not apply: the layers' coverage is antialiased already
+            page_host = self.renderer.render_color(self.view)
+            self.compute_ms.append((time.perf_counter() - t0) * 1e3)
+        elif self.pipeline:
             # frames in flight: dispatch this frame, fetch the previous one
             page_dev = self.renderer.render_direct(self.view, msaa=self.msaa, debug=self.debug)
             prev, self._inflight = self._inflight, page_dev
@@ -315,9 +323,9 @@ class InteractiveSession:
         return (max(0, min(y_top, self.height - bh)), bh)
 
     def display_frame(self) -> np.ndarray:
-        """One frame as displayable RGBA (uint8 ``[H, W, 4]``): with the
-        ``t`` toggle the background is transparent (alpha = coverage), else
-        opaque over black."""
+        """One frame as displayable RGBA (uint8 ``[H, W, 4]``): a colour frame
+        opaque; a direct one with the ``t`` toggle over a transparent
+        background (alpha = coverage), else opaque over black."""
         return PageRenderer.to_rgba(self.frame(), self.transparent)
 
     def stats(self) -> dict:

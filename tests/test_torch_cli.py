@@ -403,7 +403,6 @@ class TestNotPorted:
     @pytest.mark.parametrize("argv,item", [
         (["-k"], "7a"), (["--wrap", "100"], "7a"), (["-m", "sdf", "--vertical"], "7a"),
         (["-m", "coverage", "--letter_spacing", "1"], "7a"), (["-i", "--rtl"], "7a"),
-        (["-m", "color"], "13"),
         (["-m", "lcd"], "10b"), (["--hinting"], "14"), (["--bitmaps"], "14"),
         (["-i", "--serve", "1"], "14"), (["--fallback", "x.ttf"], "14"),
         (["--variation", "wght=700"], "18"), (["--info"], "14"),

@@ -491,7 +491,25 @@ WIDTHS = [
 ]
 
 
+# the colour path's batches (fontrx_torch.engine.colorglyphs): many short
+# (glyph, layer) rows on one square tile, k = 2; the command line's tile is
+# round(size), the session's a power of two from 128 to 2048
+COLOR_PLANS = [
+    (64, (2, 256, 16, 2, 64, 39584)),
+    (128, (4, 256, 12, 2, 128, 44160)),
+    (256, (4, 256, 7, 2, 256, 44120)),
+    (2048, (4, 256, 1, 2, 2048, 56360)),
+]
+
+
 class TestLaunchPlan:
+    @pytest.mark.parametrize("tile,plan", COLOR_PLANS)
+    def test_colour_tiles(self, tile, plan):
+        """Every sub-row of a block in one pass: 16 rows a block at 64 px,
+        12 at 128, one at 2048."""
+        assert launch_plan(2, tile, tile) == plan
+        assert plan_path(plan, 2) == "all"
+
     @pytest.mark.parametrize("k,h,w,path", WIDTHS)
     def test_widths_take_their_path(self, k, h, w, path):
         assert plan_path(launch_plan(k, h, w), k) == path
@@ -571,6 +589,21 @@ class TestKernelOnCard:
         torch.cuda.synchronize()
         assert coverage.launches == before + 1
         want = coverage_ref.coverage_batch(*args, height=h, width=w, samples=k)
+        assert torch.equal(out, want) and bool(((out > 0) & (out < 1)).any())
+
+    @pytest.mark.parametrize("tile,plan", COLOR_PLANS)
+    def test_colour_batch(self, cuda, font, tile, plan):
+        """A colour-shaped batch: 7 short rows sharing one grid (two layers of
+        each of three glyphs and one more), on the plan the CPU asserts."""
+        assert card_plan(2, tile, tile) == plan
+        segs, min_x, max_y, scale = glyph_batch(font, "OIl.-o|", tile * 0.8, tile)
+        min_x[:], max_y[:] = min_x[0], max_y[0]
+        args = tensors(segs, min_x, max_y, scale, cuda)
+        before = coverage.launches
+        out = coverage.coverage_batch(*args, height=tile, width=tile, samples=2)
+        torch.cuda.synchronize()
+        assert coverage.launches == before + 1
+        want = coverage_ref.coverage_batch(*args, height=tile, width=tile, samples=2)
         assert torch.equal(out, want) and bool(((out > 0) & (out < 1)).any())
 
     def test_plan_matches_transcription(self, cuda):

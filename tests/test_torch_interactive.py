@@ -189,7 +189,8 @@ class TestSession:
             getattr(sess, name)(*args)
 
     @pytest.mark.parametrize("options", [
-        {"mode": "composite"}, {"mode": "color"}, {"kern": True}, {"ligatures": True},
+        {"mode": "composite"}, {"mode": "color", "kern": True}, {"kern": True},
+        {"ligatures": True},
         {"rtl": True}, {"layout_options": {"underline": True}}])
     def test_unported_options_raise(self, font, options):
         with pytest.raises(NotImplementedError):

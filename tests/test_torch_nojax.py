@@ -48,6 +48,7 @@ MODULES = [
     "fontrx_torch.font.charmap",
     "fontrx_torch.font.glyph",
     "fontrx_torch.font.font",
+    "fontrx_torch.font.colr",
     "fontrx_torch.font.uax29",
     "fontrx_torch.font._uax29_data",
     "fontrx_torch.geometry",
@@ -60,6 +61,7 @@ MODULES = [
     "fontrx_torch.bench.banded",
     "fontrx_torch.bench.cjk",
     "fontrx_torch.bench.page_split",
+    "fontrx_torch.bench.color_split",
     "fontrx_torch.bench.roofline",
     "fontrx_torch.bench.timing",
     "fontrx_torch.io",
@@ -67,6 +69,7 @@ MODULES = [
     "fontrx_torch.engine.raster",
     "fontrx_torch.engine.atlas",
     "fontrx_torch.engine.sharding",
+    "fontrx_torch.engine.colorglyphs",
     "fontrx_torch.scene",
     "fontrx_torch.scene.transform",
     "fontrx_torch.scene.layout",

@@ -324,8 +324,15 @@ class TestRenderer:
         np.testing.assert_array_equal(PageRenderer.to_rgba(page_u8.numpy(), transparent), want)
 
     def test_to_rgba_of_a_colour_page_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            PageRenderer.to_rgba(np.zeros((4, 4, 3), np.uint8))
+        """A colour page (uint8 ``[H, W, 3]``, ``render_color``'s) was not
+        ported before the colour path; now it is the JAX package's opaque
+        RGBA."""
+        from fontrx.scene.page import PageRenderer as RefRenderer
+
+        page_rgb = np.random.default_rng(3).integers(0, 256, (4, 5, 3), dtype=np.uint8)
+        got = PageRenderer.to_rgba(page_rgb, transparent=True)
+        assert got.shape == (4, 5, 4) and (got[..., 3] == 255).all()
+        np.testing.assert_array_equal(got, RefRenderer.to_rgba(page_rgb, True))
 
 
 # -- the kernel on the card -----------------------------------------------------------
